@@ -1,0 +1,210 @@
+"""film_attn_pt over the frozen stem, eval forward (the port of models/film.py).
+
+Per frame: conv3x3(512->C) -> ReLU -> BN, then N residual FiLM blocks
+    res = ReLU(conv1x1(x)); y = conv3x3(res); y = ReLU(alpha*y + beta) + res
+with (alpha, beta) generated from the question, which is re-encoded once per
+frame with a carried LSTM state (the film_hidden drift). The tail embeds each
+frame, scores it, and runs a 35-step attention LSTM over the frames.
+
+The trunk's convs run once over the folded [B*T] frame batch. The trunk has
+three modes: plain (``compute_dtype``); the f32 calibration pass, which
+records each conv's input absmax (1.25x headroom) and pre-quantized int8
+weights into the state; and static int8 from that state, where the 1x1 convs
+take the fused int8 kernel when the folded row count is at or under
+``INT8_FUSED_MAX_ROWS``. Only the eval forward is ported (``train=False``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from videonavqa_tpu_torch.kernels.attn_tail import attn_tail, attn_tail_plain
+from videonavqa_tpu_torch.kernels.film_reencode import film_reencode_plain, film_reencode
+from videonavqa_tpu_torch.kernels.int8_matmul import matmul_int8_fused
+from videonavqa_tpu_torch.models.base import register_model
+from videonavqa_tpu_torch.ops import initializers as init
+from videonavqa_tpu_torch.ops.conv import conv2d
+from videonavqa_tpu_torch.ops.linear import embedding, linear, linear_chw
+from videonavqa_tpu_torch.ops.masking import attn_frame_mask, length_mask, mask_invalid
+from videonavqa_tpu_torch.ops.norm import frame_batch_norm
+from videonavqa_tpu_torch.ops.quant import (
+    conv2d_int8_preq_act, conv2d_int8_prequant, quantize_weight_channelwise)
+from videonavqa_tpu_torch.utils import constants as C
+from videonavqa_tpu_torch.utils.device import tree_to
+
+# Folded-row-count ceiling for the fused int8 1x1 kernel (rows = B*T*10*13).
+# Inherited from the JAX package, where it was measured on another chip; not
+# yet measured on the H100. With it, batch 32 x 35 frames (145,600 rows)
+# skips the fused kernel and batch 1 x 35 frames (4,550 rows) takes it.
+INT8_FUSED_MAX_ROWS = 9100
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _eval_only(train):
+    if train:
+        raise NotImplementedError("the port has only the eval forward (train=False)")
+
+
+def init_film_trunk(gen, cfg):
+    """conv_init + bn_init + N x (conv3x3, conv1x1)."""
+    ch = cfg.num_res_block_channels
+    params = {"conv_init": init.reference_conv2d(gen, 3, 3, cfg.num_input_channels, ch)}
+    params["bn_init"], bn_state = init.init_bn(ch)
+    for k in range(cfg.num_res_blocks):
+        params[f"conv3x3_{k}"] = init.reference_conv2d(gen, 3, 3, ch, ch)
+        params[f"conv1x1_{k}"] = init.reference_conv2d(gen, 1, 1, ch, ch)
+    return params, {"bn_init": bn_state}
+
+
+def _trunk_convs(params, state, cfg, rows, new_state):
+    """(conv, block_convs) of the trunk's mode; block_convs is None unless the
+    fused int8 1x1 kernel runs."""
+    dtype = _DTYPES[cfg.compute_dtype]
+    if cfg.int8_trunk_calibrate:
+        captured, captured_wq = {}, {}
+        new_state["int8_scales"] = captured
+        new_state["int8_wq"] = captured_wq
+
+        def conv(p, x, name):
+            captured[name] = 1.25 * torch.amax(torch.abs(x.float()))
+            wq, sw = quantize_weight_channelwise(p["weight"])
+            captured_wq[name] = {"wq": wq, "scale": sw}
+            return conv2d(p, x, dtype=torch.float32)
+
+        return conv, None
+    if not cfg.use_int8_trunk:
+        return (lambda p, x, name: conv2d(p, x, dtype=dtype)), None
+
+    scales, wqs = state.get("int8_scales"), state.get("int8_wq")
+    if scales is None or wqs is None:
+        raise ValueError("the int8 trunk needs a calibrated state (int8_scales and "
+                         "int8_wq from an int8_trunk_calibrate pass); dynamic int8 "
+                         "is not ported")
+
+    def conv(p, x, name):
+        return conv2d_int8_prequant(wqs[name]["wq"], wqs[name]["scale"], p.get("bias"),
+                                    x, scales[name], out_dtype=dtype)
+
+    if not (cfg.use_pallas_kernels and rows <= INT8_FUSED_MAX_ROWS):
+        return conv, None
+
+    def block_convs(k, x, p1x1, p3x3):
+        n1, n3 = f"conv1x1_{k}", f"conv3x3_{k}"
+        res, resq = matmul_int8_fused(
+            x, wqs[n1]["wq"][:, :, 0, 0], wqs[n1]["scale"], p1x1.get("bias"),
+            scales[n1], relu=True, next_absmax=scales[n3], out_dtype=dtype)
+        y = conv2d_int8_preq_act(wqs[n3]["wq"], wqs[n3]["scale"], p3x3.get("bias"),
+                                 resq, scales[n3], out_dtype=dtype)
+        return res, y
+
+    return conv, block_convs
+
+
+def film_trunk(params, state, feats, film_values, frame_mask, cfg, *, train=False):
+    """feats [B,T,10,13,Cin], film_values [B,T,2*C*N] -> ([B,T,10,13,C], new_state).
+
+    Conv outputs are stored at the compute dtype, BN works in f32, and the
+    FiLM values are cast to the conv output's dtype."""
+    _eval_only(train)
+    B, T = feats.shape[:2]
+    ch = cfg.num_res_block_channels
+    new_state = dict(state)
+    conv, block_convs = _trunk_convs(params, state, cfg,
+                                     B * T * feats.shape[2] * feats.shape[3], new_state)
+    if block_convs is None:
+        def block_convs(k, x, p1x1, p3x3):
+            res = torch.relu(conv(p1x1, x, f"conv1x1_{k}"))
+            return res, conv(p3x3, res, f"conv3x3_{k}")
+
+    x = torch.relu(conv(params["conv_init"], feats.reshape(B * T, *feats.shape[2:]),
+                        "conv_init"))
+    x, new_state["bn_init"] = frame_batch_norm(
+        params["bn_init"], state["bn_init"], x.reshape(B, T, *x.shape[1:]), frame_mask,
+        train=False)
+    x = x.reshape(B * T, *x.shape[2:])
+    fv = film_values.reshape(B * T, -1)
+    for k in range(cfg.num_res_blocks):
+        res, y = block_convs(k, x, params[f"conv1x1_{k}"], params[f"conv3x3_{k}"])
+        a = fv[:, 2 * k * ch: 2 * k * ch + ch].to(y.dtype)[:, None, None, :]
+        b = fv[:, 2 * k * ch + ch: 2 * (k + 1) * ch].to(y.dtype)[:, None, None, :]
+        x = torch.relu(a * y + b) + res
+    return x.reshape(B, T, *x.shape[1:]), new_state
+
+
+def init_film_generator(gen, cfg, total_out):
+    """Embedding + LSTM encoder + decoder Linear."""
+    if cfg.q_encoder != "lstm":
+        raise NotImplementedError("the port has only the LSTM FiLM encoder")
+    return {
+        "embed": {"weight": init.normal(gen, (cfg.vocab_size, cfg.embed_size))},
+        "encoder": init.reference_lstm(gen, cfg.embed_size, cfg.hidden_size),
+        "decoder": init.reference_linear(gen, total_out, cfg.hidden_size),
+    }
+
+
+def film_values_over_frames(params, q, q_lens, num_frames, cfg):
+    """FiLM (gamma, beta) per frame: [B, T, total_out] f32.
+
+    One question re-encode per frame with carried (h, c). The token
+    projection is the same for every frame: one matmul, then the whole
+    num_frames x q_len double recurrence, as one kernel when
+    ``cfg.use_pallas_kernels`` (kernels/film_reencode.py)."""
+    if cfg.q_encoder != "lstm":
+        raise NotImplementedError("the port has only the LSTM FiLM encoder")
+    enc_p = params["encoder"]
+    emb = embedding(params["embed"], q)
+    xw = linear({"weight": enc_p["w_ih"], "bias": enc_p["b_ih"]}, emb)  # [B,Tq,4H]
+    run = film_reencode if cfg.use_pallas_kernels else film_reencode_plain
+    enc = run(xw.transpose(0, 1).contiguous(), enc_p["w_hh"].float().contiguous(),
+              enc_p["b_hh"].float().contiguous(), q_lens.to(torch.int32), num_frames)
+    return torch.relu(linear(params["decoder"], enc.transpose(0, 1)))
+
+
+def init_film_attn(gen, cfg, device):
+    """(params, state) of film_attn_pt from a CPU ``torch.Generator``, moved
+    to ``device``."""
+    total_out = 2 * cfg.num_res_block_channels * cfg.num_res_blocks
+    params = init_film_generator(gen, cfg, total_out)
+    params["trunk"], trunk_state = init_film_trunk(gen, cfg)
+    dim = C.STEM_OUT_POSITIONS * cfg.num_res_block_channels
+    params["fc_embed_attn"] = init.reference_linear(gen, cfg.at_hidden_size, dim)
+    params["fc_attn_1"] = init.reference_linear(gen, 1, cfg.at_hidden_size)
+    params["fc_hidden_attn"] = init.reference_linear(gen, 1, cfg.at_hidden_size)
+    params["lstm_attn"] = init.reference_lstm(gen, cfg.at_hidden_size, cfg.at_hidden_size)
+    params["out_linear"] = init.reference_linear(
+        gen, cfg.num_classes, cfg.max_num_frames * cfg.at_hidden_size)
+    return tree_to(params, device), tree_to({"trunk": trunk_state}, device)
+
+
+def apply_film_attn(params, state, batch, cfg, *, train=False):
+    """Eval forward: batch (see models/base.py) -> (logits [B, num_classes],
+    new_state). Kernels run where ``cfg.use_pallas_kernels`` asks for them."""
+    _eval_only(train)
+    feats, v_lens = batch["v_features"], batch["v_len"]
+    q, q_lens = batch["question"], batch["q_len"]
+    B, T = feats.shape[:2]
+    frame_mask = length_mask(v_lens, T)
+
+    films = film_values_over_frames(params, q, q_lens, T, cfg)
+    x, trunk_state = film_trunk(params["trunk"], state["trunk"], feats, films,
+                                frame_mask, cfg)
+
+    # per-frame feature embedding; invalid frames zero
+    all_features = mask_invalid(linear_chw(params["fc_embed_attn"], x), v_lens)
+    # scores at invalid frames stay exactly 0: the bias is not applied there
+    scores = torch.where(frame_mask, linear(params["fc_attn_1"], all_features)[..., 0], 0.0)
+    mask = attn_frame_mask(v_lens, T)  # [B,T], 0 beyond batch max (quirk)
+    # frames trimmed away by a length bucket are the reference's "beyond batch
+    # max" frames: zero features, score and mask; they add n_phantom * exp(v)
+    # to the softmax normalizer and nothing to the context
+    n_phantom = float(cfg.max_num_frames - T)
+
+    run = attn_tail if cfg.use_pallas_kernels else attn_tail_plain
+    # the LSTMCell runs all max_num_frames steps, whatever the trim
+    hs = run(params, all_features, scores, mask, cfg.max_num_frames, n_phantom)
+    return linear(params["out_linear"], hs.reshape(B, -1)), {"trunk": trunk_state}
+
+
+register_model("film_attn_pt", init_film_attn, apply_film_attn,
+               needs_video=True, needs_question=True, uses_stem=True)

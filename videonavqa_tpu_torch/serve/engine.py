@@ -1,0 +1,94 @@
+"""Serving engine over precomputed frozen-stem features.
+
+The core of the JAX package's ``cli/serve.py`` InferenceEngine in its
+feature-cache mode: the model loads once, and each micro-batch is padded to
+``max_batch`` rows (padding rows have v_len = q_len = 1) and its frame axis
+trimmed to the smallest frame bucket that covers its longest video. With the
+int8 trunk, the FIRST micro-batch runs the f32 calibration forward on the
+padded batch exactly as it stands (padding rows enter the absmax) and every
+later batch serves static int8 from the recorded state.
+
+The HTTP daemon, the micro-batcher, the feature-cache loader and hot reload
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from videonavqa_tpu_torch.models import get_model
+from videonavqa_tpu_torch.train.step import forward
+from videonavqa_tpu_torch.utils import constants as C
+from videonavqa_tpu_torch.utils.checkpoint import load_jax_checkpoint
+from videonavqa_tpu_torch.utils.device import resolve_device
+
+
+class InferenceEngine:
+    """Loads the model once; serves padded fixed-shape micro-batches.
+
+    Weights come from a JAX-package checkpoint (``checkpoint_path``) or from
+    the reference init drawn from ``torch.Generator().manual_seed(seed)``.
+    ``device`` defaults to the card; pass ``"cpu"`` to run the plain path."""
+
+    def __init__(self, cfg, *, checkpoint_path=None, seed=0, max_batch=8,
+                 frame_buckets=C.FRAME_BUCKETS, device=None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.spec = get_model(cfg.model)
+        if not self.spec.uses_stem:
+            raise ValueError(f"{cfg.model} does not consume frozen-stem features")
+        self.B = max_batch
+        self.frame_buckets = tuple(frame_buckets)
+        if checkpoint_path:
+            self.params, self.state, _ = load_jax_checkpoint(checkpoint_path, self.device)
+        else:
+            self.params, self.state = self.spec.init(
+                torch.Generator().manual_seed(seed), cfg, self.device)
+        self.needs_int8_calibration = cfg.use_int8_trunk
+        self._calibrate_cfg = dataclasses.replace(cfg, int8_trunk_calibrate=True)
+
+    def bucket_for(self, v_len):
+        """Smallest frame bucket covering ``v_len`` (35 when none does)."""
+        return min((t for t in self.frame_buckets if t >= max(v_len, 1)),
+                   default=C.MAX_ALLOWED_NUM_FRAMES_DROPPING)
+
+    def make_batch(self, items):
+        """The padded batch of ``items`` on the engine's device.
+
+        items: list of (features [35, 10, 13, C] bf16/fp8 tensor, v_len,
+        tokens)."""
+        n = len(items)
+        if not 1 <= n <= self.B:
+            raise ValueError(f"a micro-batch holds 1..{self.B} items, got {n}")
+        t_b = self.bucket_for(max(max(int(vl), 1) for _, vl, _ in items))
+        first = torch.as_tensor(items[0][0])
+        feats = torch.zeros((self.B, t_b, *first.shape[1:]), dtype=first.dtype,
+                            device=self.device)
+        question = torch.zeros((self.B, C.MAX_Q_LEN), dtype=torch.int32, device=self.device)
+        v_len = torch.ones(self.B, dtype=torch.int32)
+        q_len = torch.ones(self.B, dtype=torch.int32)
+        for i, (frames, vl, tokens) in enumerate(items):
+            frames = torch.as_tensor(frames)
+            t_i = min(frames.shape[0], t_b)
+            feats[i, :t_i] = frames[:t_i].to(self.device)
+            tokens = torch.as_tensor(tokens, dtype=torch.int32)[:C.MAX_Q_LEN]
+            question[i, :len(tokens)] = tokens.to(self.device)
+            v_len[i] = max(int(vl), 1)
+            q_len[i] = max(len(tokens), 1)
+        return {"v_features": feats, "question": question,
+                "v_len": v_len.to(self.device), "q_len": q_len.to(self.device)}
+
+    def run_batch(self, items):
+        """[n, num_classes] f32 probabilities of ``items`` (padding rows dropped)."""
+        batch = self.make_batch(items)
+        with torch.inference_mode():
+            if self.needs_int8_calibration:
+                logits, self.state = forward(self.spec, self._calibrate_cfg, self.params,
+                                             self.state, batch)
+                self.needs_int8_calibration = False
+            else:
+                logits, _ = forward(self.spec, self.cfg, self.params, self.state, batch)
+            probs = torch.softmax(logits, dim=-1)
+        return probs[:len(items)].cpu().numpy()
