@@ -24,6 +24,13 @@ kernel's plain version):
              with every launch counter set to 0 just before and read just
              after; then holds the kernel path against the plain path on the
              same calibrated state and times ms/video.
+             The same for time_multi_hop at its eval.sh preset (3 FiLM blocks
+             x 1024 channels, 64 tail channels, hidden/embed 128, int8 trunk)
+             at batch 16 in two frame buckets and batch 1, where the LSTM
+             kernel launches once per frame; and for lstm, v_only_cnn2d_lstm,
+             concat2d and mac at the ModelConfig defaults (hidden 128,
+             mac_dim 512, 12 MAC steps) at batch 32 and batch 1, the video
+             models from seeded uint8 frames [35, 160, 208, 3].
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -44,6 +51,7 @@ from videonavqa_tpu_torch.kernels import _build
 from videonavqa_tpu_torch.kernels import attn_tail as attn_mod
 from videonavqa_tpu_torch.kernels import film_reencode as reenc_mod
 from videonavqa_tpu_torch.kernels import int8_matmul as int8_mod
+from videonavqa_tpu_torch.kernels import lstm as lstm_mod
 from videonavqa_tpu_torch.models import ModelConfig
 from videonavqa_tpu_torch.ops import initializers as init
 from videonavqa_tpu_torch.ops.masking import attn_frame_mask, length_mask
@@ -70,7 +78,11 @@ REPO_SOURCE = {
                   "videonavqa_tpu/kernels/attn_tail_pallas.py:60"),
     "int8_matmul_fused": ("videonavqa_tpu_torch/csrc/int8_matmul.cu",
                           "videonavqa_tpu/kernels/int8_matmul_pallas.py:58"),
+    "lstm": ("videonavqa_tpu_torch/csrc/lstm.cu",
+             "videonavqa_tpu/kernels/lstm_pallas.py:54"),
 }
+COUNTERS = {"film_reencode": reenc_mod, "attn_tail": attn_mod, "int8_matmul_fused": int8_mod,
+            "lstm": lstm_mod}
 
 
 def log(msg):
@@ -218,6 +230,77 @@ def check_attn_tail(dev):
     return rows
 
 
+# (B, T, H) at which the served models launch the LSTM kernel, and batch 1 at
+# each hidden size. The first row of each H is the one that is timed.
+LSTM_SHAPES = (
+    (32, 56, 128),    # lstm (q-only) and concat2d's q_lstm
+    (16, 56, 128),    # time_multi_hop's q_encoder, once per frame
+    (32, 35, 128),    # v_only_cnn2d_lstm and concat2d's v_lstm
+    (1, 56, 128),
+    (32, 56, 512),    # mac's biLSTM, forward and backward
+    (1, 56, 512),
+    (32, 35, 1536),   # mac's tail LSTM
+    (1, 35, 1536),
+)
+LSTM_MAIN = (16, 56, 128)   # the shape on the JSON line: time_multi_hop's
+
+
+def check_lstm(dev):
+    """Each (B, T, H) of LSTM_SHAPES: ragged lens including 1 and T, non-zero
+    h0 and c0; outs, h_f and c_f within RECURRENCE_ATOL of the plain version
+    and outs exactly zero at t >= len. ``library_ms`` is one torch.nn.LSTM
+    forward (cuDNN) of the same shape from the same weights and state: it
+    takes the un-projected input and has no length masking (every row runs
+    all T steps), so it is a yardstick for the unmasked recurrence only."""
+    gen = torch.Generator().manual_seed(6)
+    rows = {}
+    timed = set()
+    for B, T, H in LSTM_SHAPES:
+        cell = init.torch_default_lstm(gen, H, H) if H > 128 else init.reference_lstm(gen, H, H)
+        lens = torch.randint(1, T + 1, (B,), generator=gen, dtype=torch.int32)
+        lens[0] = T if B == 1 else 1
+        if B > 1:
+            lens[1] = T
+        x = torch.randn((B, T, H), generator=gen)
+        xw = (x @ cell["w_ih"].t() + cell["b_ih"]).transpose(0, 1).contiguous()
+        h0, c0 = torch.randn((B, H), generator=gen), torch.randn((B, H), generator=gen)
+        args = [t.to(dev) for t in (xw, cell["w_hh"], cell["b_hh"], lens, h0, c0)]
+        got = lstm_mod.lstm(*args)
+        want = lstm_mod.lstm_plain(*args)
+        torch.cuda.synchronize()
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        past = torch.arange(T, device=dev)[:, None] >= args[3][None, :]          # [T, B]
+        stray = float((got[0].abs() * past[..., None]).max())
+        tag = f"B={B} T={T} H={H}"
+        log(f"  lstm {tag}: max_abs_err {err:.3e} over outs, h_f, c_f (atol {RECURRENCE_ATOL});"
+            f" largest |out| at t >= len: {stray}")
+        if not err <= RECURRENCE_ATOL or stray != 0.0:
+            raise AssertionError(f"lstm {tag} disagrees: {err}, {stray}")
+        rows[(B, T, H)] = row = dict(max_abs_err=err)
+        if H in timed and (B, T, H) != LSTM_MAIN:
+            continue
+        timed.add(H)
+        steps = int(lens.sum())
+        nbytes = 4 * (xw.numel() + 4 * H * H + 4 * H + B + 2 * B * H + T * B * H + 2 * B * H)
+        ops = steps * (2 * 4 * H * H + 12 * H)
+        b_ms, b_by = bound_ms(nbytes, ops, F32_FLOPS)
+        lib = torch.nn.LSTM(H, H, batch_first=True).to(dev)
+        with torch.no_grad():
+            for name, key in (("weight_ih_l0", "w_ih"), ("weight_hh_l0", "w_hh"),
+                              ("bias_ih_l0", "b_ih"), ("bias_hh_l0", "b_hh")):
+                getattr(lib, name).copy_(cell[key])
+            x_dev, state = x.to(dev), (args[4][None], args[5][None])
+            row.update(bound_ms=b_ms, bound_by=b_by,
+                       library_ms=time_ms(lambda: lib(x_dev, state), 10),
+                       **timings(lambda: lstm_mod.lstm(*args), lambda: lstm_mod.lstm_plain(*args),
+                                 "lstm_h128_kernel" if H == 128 else "lstm_wide_kernel", 10, 2))
+        log(f"  lstm {tag}: {row['ms']:.4f} ms (wrapper {row['wrapper_ms']:.4f}),"
+            f" plain {row['plain_ms']:.3f} ms, torch.nn.LSTM (no masking) {row['library_ms']:.4f} ms,"
+            f" bound {b_ms:.5f} ms by {b_by}; the serial chain is max len = {int(lens.max())}"
+            f" dependent steps, {steps} row-steps in all")
+    return rows
+
+
 def _bf16_ulp(v):
     """One bf16 unit in the last place at |v| (8 significant bits)."""
     e = torch.floor(torch.log2(v.abs().clamp_min(2.0 ** -126)))
@@ -287,106 +370,216 @@ def check_int8_matmul(dev):
     return rows
 
 
-def serve(dev):
+def reset_counters():
+    for mod in COUNTERS.values():
+        mod.launches = 0
+
+
+def read_counters():
+    return {name: mod.launches for name, mod in COUNTERS.items()}
+
+
+def check_probs(probs, n, num_classes=70):
+    if probs.shape != (n, num_classes):
+        raise AssertionError(f"probabilities of shape {probs.shape}")
+    p = torch.from_numpy(probs)
+    if not (torch.isfinite(p).all() and float((p.sum(dim=1) - 1.0).abs().max()) < 1e-3):
+        raise AssertionError("probabilities are not finite or do not sum to 1")
+
+
+def compare_paths(eng, its):
+    """Max |dprob| between the kernel path and the plain path of one padded
+    batch on the engine's state (the same generator seed for both); raises
+    beyond PROB_ATOL or on a differing argmax where the margin is wide."""
+    cfg = eng.cfg
+    plain_cfg = dataclasses.replace(cfg, use_pallas_kernels=False)
+    batch = eng.make_batch(its)
+    with torch.inference_mode():
+        lk, _ = forward(eng.spec, cfg, eng.params, eng.state, batch,
+                        torch.Generator(device=eng.device).manual_seed(11))
+        lp, _ = forward(eng.spec, plain_cfg, eng.params, eng.state, batch,
+                        torch.Generator(device=eng.device).manual_seed(11))
+    n = len(its)
+    lk, lp = lk[:n].float(), lp[:n].float()
+    pdiff = (torch.softmax(lk, -1) - torch.softmax(lp, -1)).abs().max().item()
+    top2 = lp.topk(2, dim=-1).values
+    wide = (top2[:, 0] - top2[:, 1]) > ARGMAX_MARGIN
+    agree = (lk.argmax(-1) == lp.argmax(-1))
+    frames = f" T{batch[eng.visual_key].shape[1]}" if eng.visual_key else ""
+    log(f"  {cfg.model} kernel vs plain path, batch {eng.B}{frames}:"
+        f" max |dprob| {pdiff:.3e} (bound {PROB_ATOL}), argmax agree"
+        f" {int(agree.sum())}/{n} ({int(wide.sum())} rows with margin > {ARGMAX_MARGIN})")
+    if pdiff > PROB_ATOL or not bool(agree[wide].all()):
+        raise AssertionError(f"{cfg.model}: the kernel path disagrees with the plain path")
+    return pdiff
+
+
+def per_video_ms(eng, its, iters, use_kernels):
+    saved = eng.cfg
+    eng.cfg = dataclasses.replace(saved, use_pallas_kernels=use_kernels)
+    try:
+        eng.run_batch(its)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            eng.run_batch(its)
+        return (time.perf_counter() - t0) / iters / len(its) * 1e3
+    finally:
+        eng.cfg = saved
+
+
+def time_paths(label, eng, its, iters, top=8):
+    """(kernel path, plain path) ms/video of ``its``, and the device breakdown
+    of one kernel-path batch."""
+    ms = (per_video_ms(eng, its, iters, True), per_video_ms(eng, its, iters, False))
+    busy, wall, rows = device_breakdown(lambda: eng.run_batch(its), top)
+    log(f"  {label}: kernel path {ms[0]:.4f} ms/video, plain path"
+        f" {ms[1]:.4f} ms/video; one batch: device busy {busy:.3f} ms of"
+        f" {wall:.3f} ms wall (idle share {max(0.0, 1 - busy / wall):.3f})")
+    for name, t in rows:
+        log(f"    {t:9.4f} ms  {name[:110]}")
+    return ms
+
+
+def feature_items(feats, cpu_gen, lo, hi, v_max):
+    out = []
+    for i in range(lo, hi):
+        v = int(torch.randint(1, v_max + 1, (1,), generator=cpu_gen))
+        q = int(torch.randint(1, 57, (1,), generator=cpu_gen))
+        out.append((feats[i], v, torch.randint(1, 134, (q,), generator=cpu_gen).tolist()))
+    return out
+
+
+def serve_stem_model(dev, cfg, feats, big, seed):
+    """One int8-trunk model over cached features: calibrate, then batch ``big``
+    at frame buckets 20 and 35 and batch 1 at 35 frames, counted; the kernel
+    path against the plain path; ms/video. -> (launches, ms, worst |dprob|)."""
+    t0 = time.perf_counter()
+    eng_big = InferenceEngine(cfg, seed=0, max_batch=big, device=dev)
+    eng1 = InferenceEngine(cfg, seed=0, max_batch=1, device=dev)
+    log(f"  {cfg.model} weights: 2 engines from seed 0 in {time.perf_counter() - t0:.1f} s")
+    cpu_gen = torch.Generator().manual_seed(seed)
+    cal = feature_items(feats, cpu_gen, 0, big, 35)
+    b20 = feature_items(feats, cpu_gen, 32, 32 + big, 20)
+    b35 = feature_items(feats, cpu_gen, 64, 64 + big, 35)
+    b35[0] = (b35[0][0], 35, b35[0][2])
+    one = [(feats[96], 35, feature_items(feats, cpu_gen, 96, 97, 35)[0][2])]
+
+    t0 = time.perf_counter()
+    eng_big.run_batch(cal)   # first micro-batch: the f32 calibration pass
+    eng1.run_batch(one)
+    torch.cuda.synchronize()
+    log(f"  int8 calibration on each engine's first micro-batch: {time.perf_counter() - t0:.2f} s")
+    if eng_big.needs_int8_calibration or eng1.needs_int8_calibration:
+        raise AssertionError("the engines did not calibrate")
+    runs = ((eng_big, b20), (eng_big, b35), (eng1, one))
+    for eng, its in runs:   # warm-up
+        eng.run_batch(its)
+
+    reset_counters()
+    outs = [eng.run_batch(its) for eng, its in runs]
+    torch.cuda.synchronize()
+    launches = read_counters()
+    log(f"  {cfg.model} launches on its path (batch {big} at buckets 20 and 35, batch 1 at 35):"
+        f" {launches}")
+    for probs, (_, its) in zip(outs, runs):
+        check_probs(probs, len(its))
+    worst = max(compare_paths(eng, its) for eng, its in runs)
+    ms = {f"{cfg.model} batch {big} T35": time_paths(f"{cfg.model} batch {big} T35",
+                                                     eng_big, b35, 3),
+          f"{cfg.model} batch 1 T35": time_paths(f"{cfg.model} batch 1 T35", eng1, one, 10)}
+    return launches, ms, worst
+
+
+def expect_launches(model, launches, want):
+    """``want``: {kernel: exact count, or None for 'at least one'}; every
+    other kernel must not have been launched."""
+    for name, n in launches.items():
+        w = want.get(name, 0)
+        if (n < 1) if w is None else (n != w):
+            raise AssertionError(f"{model}: {name} launched {n} times on its path, expected"
+                                 f" {'at least 1' if w is None else w}")
+
+
+def serve_film_attn(dev, feats):
     cfg = ModelConfig(model="film_attn_pt", num_res_blocks=5, num_res_block_channels=1024,
                       hidden_size=128, at_hidden_size=128, embed_size=128,
                       num_input_channels=512, compute_dtype="bfloat16", max_num_frames=35,
                       max_q_len=56, vocab_size=134, num_classes=70,
                       use_pallas_kernels=True, use_int8_trunk=True)
-    t0 = time.perf_counter()
+    launches, ms, worst = serve_stem_model(dev, cfg, feats, 32, 5)
+    expect_launches(cfg.model, launches,
+                    {"film_reencode": None, "attn_tail": None, "int8_matmul_fused": None})
+    return launches, ms, worst
+
+
+def serve_time_multi_hop(dev, feats):
+    """eval.sh preset: 3 FiLM blocks x 1024 channels, 64 tail channels, batch 16.
+    The LSTM kernel launches once per served frame (20 + 35 + 35); the fused
+    int8 1x1 kernel once per block at batch 1 only (4,550 folded rows; batch
+    16 is over the 9,100-row gate at both buckets)."""
+    cfg = ModelConfig(model="time_multi_hop", num_res_blocks=3, num_res_block_channels=1024,
+                      num_tail_channels=64, hidden_size=128, embed_size=128,
+                      num_input_channels=512, compute_dtype="bfloat16", max_num_frames=35,
+                      max_q_len=56, vocab_size=134, num_classes=70,
+                      use_pallas_kernels=True, use_int8_trunk=True)
+    launches, ms, worst = serve_stem_model(dev, cfg, feats, 16, 7)
+    expect_launches(cfg.model, launches, {"lstm": 20 + 35 + 35, "int8_matmul_fused": 3})
+    return launches, ms, worst
+
+
+def serve_zoo_model(dev, model, feats, lstm_per_forward):
+    """One of lstm, v_only_cnn2d_lstm, concat2d, mac at the ModelConfig
+    defaults: one bucket-35 batch of 32 and one batch-1 call, counted; the
+    kernel path against the plain path; ms/video."""
+    cfg = ModelConfig(model=model, use_pallas_kernels=True)
     eng32 = InferenceEngine(cfg, seed=0, max_batch=32, device=dev)
     eng1 = InferenceEngine(cfg, seed=0, max_batch=1, device=dev)
-    log(f"  weights: 2 engines from seed 0 in {time.perf_counter() - t0:.1f} s")
-
-    gen = torch.Generator(device=dev).manual_seed(4)
-    cpu_gen = torch.Generator().manual_seed(5)
-    n_items = 32 * 3 + 1
-    feats = torch.relu(torch.randn((n_items, 35, 10, 13, 512), generator=gen, device=dev)
-                       ).to(torch.bfloat16)
-
-    def items(lo, hi, v_max):
-        out = []
-        for i in range(lo, hi):
-            v = int(torch.randint(1, v_max + 1, (1,), generator=cpu_gen))
-            q = int(torch.randint(1, 57, (1,), generator=cpu_gen))
-            out.append((feats[i], v, torch.randint(1, 134, (q,), generator=cpu_gen).tolist()))
-        return out
-
-    cal = items(0, 32, 35)
-    b20 = items(32, 64, 20)
-    b35 = items(64, 96, 35)
-    b35[0] = (b35[0][0], 35, b35[0][2])
-    one = [(feats[96], 35, items(96, 97, 35)[0][2])]
-
-    t0 = time.perf_counter()
-    eng32.run_batch(cal)   # first micro-batch: the f32 calibration pass
-    eng1.run_batch(one)
+    cpu_gen = torch.Generator().manual_seed(8)
+    its = feature_items(feats, cpu_gen, 0, 33, 35)
+    its[0] = (its[0][0], 35, its[0][2])
+    its[32] = (its[32][0], 35, its[32][2])
+    if eng32.visual_key == "video":
+        gen = torch.Generator(device=dev).manual_seed(9)
+        video = torch.randint(0, 256, (33, 35, 160, 208, 3), generator=gen, device=dev,
+                              dtype=torch.uint8)
+        its = [(video[i], v, q) for i, (_, v, q) in enumerate(its)]
+    elif eng32.visual_key is None:
+        its = [(None, 0, q) for _, _, q in its]
+    runs = ((eng32, its[:32]), (eng1, its[32:]))
+    for eng, b in runs:   # warm-up
+        eng.run_batch(b)
+    reset_counters()
+    outs = [eng.run_batch(b) for eng, b in runs]
     torch.cuda.synchronize()
-    log(f"  int8 calibration on each engine's first micro-batch: {time.perf_counter() - t0:.2f} s")
-    if eng32.needs_int8_calibration or eng1.needs_int8_calibration:
-        raise AssertionError("the engines did not calibrate")
-    for eng, its in ((eng32, b20), (eng32, b35), (eng1, one)):   # warm-up
-        eng.run_batch(its)
-
-    for mod in (reenc_mod, attn_mod, int8_mod):
-        mod.launches = 0
-    outs = [eng32.run_batch(b20), eng32.run_batch(b35), eng1.run_batch(one)]
-    torch.cuda.synchronize()
-    launches = {"film_reencode": reenc_mod.launches, "attn_tail": attn_mod.launches,
-                "int8_matmul_fused": int8_mod.launches}
-    log(f"  launches on the main path (batch 32 at buckets 20 and 35, batch 1 at 35): {launches}")
-    for name, n in launches.items():
-        if n < 1:
-            raise AssertionError(f"{name} was not launched on the main path")
-    for probs, its in zip(outs, (b20, b35, one)):
-        if probs.shape != (len(its), 70):
-            raise AssertionError(f"probabilities of shape {probs.shape}")
-        row_sums = torch.from_numpy(probs).sum(dim=1)
-        if not (torch.isfinite(torch.from_numpy(probs)).all()
-                and float((row_sums - 1.0).abs().max()) < 1e-3):
-            raise AssertionError("probabilities are not finite or do not sum to 1")
-
-    plain_cfg = dataclasses.replace(cfg, use_pallas_kernels=False)
-    worst = 0.0
-    for eng, its in ((eng32, b20), (eng32, b35), (eng1, one)):
-        batch = eng.make_batch(its)
-        with torch.inference_mode():
-            lk, _ = forward(eng.spec, cfg, eng.params, eng.state, batch)
-            lp, _ = forward(eng.spec, plain_cfg, eng.params, eng.state, batch)
-        n = len(its)
-        lk, lp = lk[:n].float(), lp[:n].float()
-        pdiff = (torch.softmax(lk, -1) - torch.softmax(lp, -1)).abs().max().item()
-        top2 = lp.topk(2, dim=-1).values
-        wide = (top2[:, 0] - top2[:, 1]) > ARGMAX_MARGIN
-        agree = (lk.argmax(-1) == lp.argmax(-1))
-        log(f"  kernel vs plain path, batch {eng.B} T{eng.bucket_for(max(v for _, v, _ in its))}:"
-            f" max |dprob| {pdiff:.3e} (bound {PROB_ATOL}), argmax agree"
-            f" {int(agree.sum())}/{n} ({int(wide.sum())} rows with margin > {ARGMAX_MARGIN})")
-        if pdiff > PROB_ATOL or not bool(agree[wide].all()):
-            raise AssertionError("the kernel path disagrees with the plain path")
-        worst = max(worst, pdiff)
-
-    def per_video(eng, its, iters, run_cfg):
-        saved, eng.cfg = eng.cfg, run_cfg
-        try:
-            eng.run_batch(its)
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                eng.run_batch(its)
-            return (time.perf_counter() - t0) / iters / len(its) * 1e3
-        finally:
-            eng.cfg = saved
-
-    ms = {}
-    for label, eng, its, iters in (("batch 32 T35", eng32, b35, 5), ("batch 1 T35", eng1, one, 10)):
-        ms[label] = (per_video(eng, its, iters, cfg), per_video(eng, its, iters, plain_cfg))
-        busy, wall, top = device_breakdown(lambda: eng.run_batch(its))
-        log(f"  {label}: kernel path {ms[label][0]:.4f} ms/video, plain path"
-            f" {ms[label][1]:.4f} ms/video; one batch: device busy {busy:.3f} ms of"
-            f" {wall:.3f} ms wall (idle share {max(0.0, 1 - busy / wall):.3f})")
-        for name, t in top:
-            log(f"    {t:9.4f} ms  {name[:110]}")
+    launches = read_counters()
+    log(f"  {model} launches on its path (batch 32 and batch 1): {launches}")
+    expect_launches(model, launches, {"lstm": 2 * lstm_per_forward})
+    for probs, (_, b) in zip(outs, runs):
+        check_probs(probs, len(b))
+    worst = max(compare_paths(eng, b) for eng, b in runs)
+    ms = {f"{model} batch 32": time_paths(f"{model} batch 32", eng32, its[:32], 2, top=5),
+          f"{model} batch 1": time_paths(f"{model} batch 1", eng1, its[32:], 5, top=5)}
     return launches, ms, worst
+
+
+def serve(dev):
+    """Every served path in turn -> (launches summed over the paths, ms, worst |dprob|)."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    feats = torch.relu(torch.randn((32 * 3 + 1, 35, 10, 13, 512), generator=gen, device=dev)
+                       ).to(torch.bfloat16)
+    total = dict.fromkeys(COUNTERS, 0)
+    ms, worst = {}, 0.0
+    paths = [lambda: serve_film_attn(dev, feats), lambda: serve_time_multi_hop(dev, feats)]
+    paths += [lambda m=m, n=n: serve_zoo_model(dev, m, feats, n)
+              for m, n in (("lstm", 1), ("v_only_cnn2d_lstm", 1), ("concat2d", 2), ("mac", 3))]
+    for path in paths:
+        launches, path_ms, path_worst = path()
+        for name, n in launches.items():
+            total[name] += n
+        ms.update(path_ms)
+        worst = max(worst, path_worst)
+        torch.cuda.empty_cache()
+    return total, ms, worst
 
 
 def main():
@@ -416,6 +609,7 @@ def main():
     reenc = check_film_reencode(dev)
     attn = check_attn_tail(dev)
     int8 = check_int8_matmul(dev)
+    lstm = check_lstm(dev)
 
     log("phase serve")
     launches, ms, worst = serve(dev)
@@ -434,7 +628,11 @@ def main():
         entry("film_reencode", reenc[32], max(r["max_abs_err"] for r in reenc.values())),
         entry("attn_tail", attn[(32, 35)], max(r["max_abs_err"] for r in attn.values())),
         entry("int8_matmul_fused", int8["main"], max(int8["errs"])),
+        entry("lstm", lstm[LSTM_MAIN], max(r["max_abs_err"] for r in lstm.values())),
     ]
+    for k in kernels:
+        if k["launches"] < 1:
+            raise AssertionError(f"{k['name']} was launched on no served path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -190,7 +190,11 @@ bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith('jax.') or m == 'jaxlib'
              or m == 'videonavqa_tpu' or m.startswith('videonavqa_tpu.'))
 print(len(mods), bad)
-assert len(mods) >= 15 and not bad, bad
+assert not bad, bad
+for want in ('kernels.lstm', 'models.q_only_lstm', 'models.time_multi_hop',
+             'models.v_only_cnn2d_lstm', 'models.concat2d', 'models.mac', 'ops.video'):
+    assert 'videonavqa_tpu_torch.' + want in mods, want
+assert len(mods) >= 31, len(mods)
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,

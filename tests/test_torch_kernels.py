@@ -16,13 +16,17 @@ import torch
 from videonavqa_tpu.kernels.attn_tail_pallas import attn_tail_pallas
 from videonavqa_tpu.kernels.film_reencode_pallas import film_reencode_pallas
 from videonavqa_tpu.kernels.int8_matmul_pallas import matmul_int8_fused_pallas
+from videonavqa_tpu.kernels.lstm_pallas import lstm_pallas
 from videonavqa_tpu.ops import initializers as jinit
 from videonavqa_tpu.ops import quant as jquant
+from videonavqa_tpu.ops.lstm import lstm as jax_lstm
 from videonavqa_tpu.ops.masking import attn_frame_mask
 from videonavqa_tpu_torch.kernels import _build
 from videonavqa_tpu_torch.kernels import attn_tail as attn_mod
 from videonavqa_tpu_torch.kernels import film_reencode as reenc_mod
 from videonavqa_tpu_torch.kernels import int8_matmul as int8_mod
+from videonavqa_tpu_torch.kernels import lstm as lstm_mod
+from videonavqa_tpu_torch.ops import lstm as ops_lstm
 from videonavqa_tpu_torch.ops.linear import linear
 
 RECURRENCE_ATOL = 1e-5
@@ -71,6 +75,52 @@ def test_attn_tail_matches_pallas(T):
                             interpret=True)
     got = attn_mod.attn_tail(_t(params), _t(feats), _t(scores), _t(mask), S, n_phantom)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=RECURRENCE_ATOL)
+
+
+@pytest.mark.parametrize("precomputed", [False, True])
+@pytest.mark.parametrize("carry", [False, True])
+def test_lstm_matches_pallas_and_scan(carry, precomputed):
+    """The port's masked LSTM (kernel route; the plain version on the CPU)
+    against JAX lstm_pallas in interpret mode and the JAX scan, with given
+    h0/c0 and with a precomputed input projection."""
+    B, T, E, H = 4, 9, 8, 8
+    cell = jinit.reference_lstm(jax.random.PRNGKey(0), E, H)
+    r = np.random.default_rng(5)
+    x = r.standard_normal((B, T, E)).astype(np.float32)
+    lens = np.array([9, 4, 1, 7], np.int32)
+    h0 = c0 = None
+    if carry:
+        h0, c0 = (r.standard_normal((B, H)).astype(np.float32) for _ in range(2))
+    j = lambda a: None if a is None else jnp.asarray(a)
+    jxw = jnp.asarray(x) @ cell["w_ih"].T + cell["b_ih"] if precomputed else None
+    wants = [lstm_pallas(cell, j(x), j(lens), j(h0), j(c0), precomputed_xw=jxw,
+                         interpret=True),
+             jax_lstm(cell, j(x), j(lens), j(h0), j(c0), precomputed_xw=jxw)]
+    t = lambda a: None if a is None else _t(a)
+    before = lstm_mod.launches
+    outs, (h, c) = ops_lstm.lstm(_t(cell), None if precomputed else _t(x), _t(lens), t(h0),
+                                 t(c0), precomputed_xw=t(jxw), use_kernel=True)
+    assert lstm_mod.launches == before  # the CPU runs the plain version
+    assert outs.shape == (B, T, H)
+    for want_outs, (want_h, want_c) in wants:
+        np.testing.assert_allclose(outs.numpy(), np.asarray(want_outs), atol=RECURRENCE_ATOL)
+        np.testing.assert_allclose(h.numpy(), np.asarray(want_h), atol=RECURRENCE_ATOL)
+        np.testing.assert_allclose(c.numpy(), np.asarray(want_c), atol=RECURRENCE_ATOL)
+    assert float(outs[1, 4:].abs().max()) == 0.0 and float(outs[2, 1:].abs().max()) == 0.0
+
+
+def test_lstm_plain_is_the_route_without_the_kernel():
+    """use_kernel=False and the kernel route's CPU branch are the same function."""
+    r = np.random.default_rng(6)
+    T, B, H = 5, 3, 4
+    xw, w_hh, b_hh, h0, c0 = (torch.from_numpy(r.standard_normal(s).astype(np.float32))
+                              for s in ((T, B, 4 * H), (4 * H, H), (4 * H,), (B, H), (B, H)))
+    lens = torch.tensor([5, 2, 3], dtype=torch.int32)
+    a = lstm_mod.lstm(xw, w_hh, b_hh, lens, h0, c0)
+    b = lstm_mod.lstm_plain(xw, w_hh, b_hh, lens, h0, c0)
+    for got, want in zip(a, b):
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    np.testing.assert_array_equal(a[1][1].numpy(), a[0][1, 1].numpy())  # h_f = last valid out
 
 
 @pytest.mark.parametrize("requant", [True, False])
@@ -131,3 +181,16 @@ def test_wrappers_refuse_non_cuda_non_cpu_tensors():
                                 torch.empty(128, device="meta"),
                                 torch.empty(128, device="meta"),
                                 torch.empty((), device="meta"))
+    m = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        lstm_mod.lstm(m(5, 3, 16), m(16, 4), m(16), m(3, dtype=torch.int32), m(3, 4), m(3, 4))
+
+
+@pytest.mark.parametrize("B,H", [(33, 64), (4, 6)])
+def test_lstm_kernel_refuses_shapes_it_does_not_take(B, H):
+    """Off the CPU, a hidden size other than 128 takes at most 32 batch rows
+    and a multiple of 4: refused with an error, not handed to the plain version."""
+    m = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device="meta")
+    with pytest.raises(ValueError, match="hidden size other than 128"):
+        lstm_mod.lstm(m(5, B, 4 * H), m(4 * H, H), m(4 * H), m(B, dtype=torch.int32),
+                      m(B, H), m(B, H))

@@ -1,0 +1,87 @@
+"""Masked LSTM over one sequence batch: the kernels of csrc/lstm.cu and the plain version.
+
+Replaces ``videonavqa_tpu/kernels/lstm_pallas.py`` (lstm_pallas): one masked
+LSTM pass over ``xw = x W_ih^T + b_ih`` (one matmul outside), from a given
+(h0, c0). The carry freezes at ``t >= len``, outputs are zero there, and the
+final carry is returned. The recurrent product ``h W_hh^T`` is inside the
+kernel. The serial chain of T steps bounds it on an H100; the source note in
+the .cu file says how the two designs (hidden size 128, and wider) spread a
+step over the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from videonavqa_tpu_torch.kernels import _build
+from videonavqa_tpu_torch.ops.linear import linear
+
+launches = 0
+
+# The wide kernel serves one batch row per lane of a warp.
+MAX_BATCH_WIDE = 32
+
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+def gates_to_state(gates, c):
+    """(h, c) of one LSTM step from the summed gates [B, 4H] in (i, f, g, o) order."""
+    i, f, g, o = gates.chunk(4, dim=-1)
+    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    return torch.sigmoid(o) * torch.tanh(c_new), c_new
+
+
+def lstm_plain(xw, w_hh, b_hh, lens, h0, c0):
+    """xw [T, B, 4H], lens [B], h0 and c0 [B, H] -> (outs [T, B, H] zero at
+    t >= len, h_f, c_f), in plain PyTorch."""
+    hh = {"weight": w_hh, "bias": b_hh}
+    h, c = h0, c0
+    outs = []
+    for t in range(xw.shape[0]):
+        h_new, c_new = gates_to_state(xw[t] + linear(hh, h), c)
+        valid = (t < lens)[:, None]
+        h = torch.where(valid, h_new, h)
+        c = torch.where(valid, c_new, c)
+        outs.append(torch.where(valid, h_new, torch.zeros_like(h_new)))
+    return torch.stack(outs), h, c
+
+
+def lstm(xw, w_hh, b_hh, lens, h0, c0):
+    """xw [T, B, 4H] f32, w_hh [4H, H], b_hh [4H], h0 and c0 [B, H] f32,
+    lens [B] int32 -> (outs [T, B, H], h_f [B, H], c_f [B, H]) f32.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    global launches
+    if xw.device.type == "cpu":
+        return lstm_plain(xw, w_hh, b_hh, lens, h0, c0)
+    T, B, G = xw.shape
+    H = G // 4
+    dev = xw.device
+    if T < 1 or B < 1 or H < 1 or G != 4 * H:
+        raise ValueError(f"lstm kernel: bad shape xw {tuple(xw.shape)}")
+    if H != 128 and (B > MAX_BATCH_WIDE or H % 4 != 0):
+        raise ValueError(f"lstm kernel at a hidden size other than 128 needs a multiple of 4 "
+                         f"and at most {MAX_BATCH_WIDE} batch rows a launch, got hidden {H}, "
+                         f"batch {B}")
+    _build.require(xw, "xw", torch.float32, device=dev)
+    _build.require(w_hh, "w_hh", torch.float32, (G, H), dev)
+    _build.require(b_hh, "b_hh", torch.float32, (G,), dev)
+    _build.require(lens, "lens", torch.int32, (B,), dev)
+    _build.require(h0, "h0", torch.float32, (B, H), dev)
+    _build.require(c0, "c0", torch.float32, (B, H), dev)
+    outs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
+    h_f = torch.empty((B, H), dtype=torch.float32, device=dev)
+    c_f = torch.empty((B, H), dtype=torch.float32, device=dev)
+    # the wide kernel hands h from step to step through device memory
+    h_steps = torch.empty((2, B, H), dtype=torch.float32, device=dev)
+    fn = _build.function("lstm", "lstm_forward", _ARGTYPES)
+    err = fn(xw.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), lens.data_ptr(),
+             h0.data_ptr(), c0.data_ptr(), outs.data_ptr(), h_f.data_ptr(), c_f.data_ptr(),
+             h_steps.data_ptr(), T, B, H, _build.stream_ptr(dev))
+    if err != 0:
+        raise RuntimeError(f"lstm kernel launch at T={T}, B={B}, H={H}: CUDA error {err} "
+                           "(1 = a shape the kernel does not take)")
+    launches += 1
+    return outs, h_f, c_f

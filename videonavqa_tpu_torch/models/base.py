@@ -3,12 +3,18 @@
 A model is a pair of functions over plain dictionaries of tensors:
 
     init(generator, cfg, device)           -> (params, state)
-    apply(params, state, batch, cfg, *, train) -> (logits [B, num_classes], new_state)
+    apply(params, state, batch, cfg, *, train, generator)
+                                           -> (logits [B, num_classes], new_state)
+
+``generator`` is the ``torch.Generator`` of a model that draws at eval (the
+question-only LSTM's initial state); the others ignore it.
 
 ``state`` holds BatchNorm running statistics and, after an int8 calibration
 pass, the trunk's ``int8_scales`` and ``int8_wq``. ``batch`` is a dict with
     question [B, 56] int, q_len [B] int,
-    v_features [B, T, 10, 13, 512] (frozen-stem output, channels last),
+    v_features [B, T, 10, 13, 512] (frozen-stem output, channels last) for a
+    model that ``uses_stem``, or video [B, T, 160, 208, 3] (uint8, or float
+    already divided by 255) for one that takes raw frames,
     v_len [B] int.
 """
 
@@ -16,7 +22,16 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from videonavqa_tpu_torch.utils import constants as C
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def eval_only(train):
+    if train:
+        raise NotImplementedError("the port has only the eval forward (train=False)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -21,7 +21,7 @@ import torch
 from videonavqa_tpu_torch.kernels.attn_tail import attn_tail, attn_tail_plain
 from videonavqa_tpu_torch.kernels.film_reencode import film_reencode_plain, film_reencode
 from videonavqa_tpu_torch.kernels.int8_matmul import matmul_int8_fused
-from videonavqa_tpu_torch.models.base import register_model
+from videonavqa_tpu_torch.models.base import DTYPES, eval_only, register_model
 from videonavqa_tpu_torch.ops import initializers as init
 from videonavqa_tpu_torch.ops.conv import conv2d
 from videonavqa_tpu_torch.ops.linear import embedding, linear, linear_chw
@@ -38,14 +38,6 @@ from videonavqa_tpu_torch.utils.device import tree_to
 # skips the fused kernel and batch 1 x 35 frames (4,550 rows) takes it.
 INT8_FUSED_MAX_ROWS = 9100
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
-def _eval_only(train):
-    if train:
-        raise NotImplementedError("the port has only the eval forward (train=False)")
-
-
 def init_film_trunk(gen, cfg):
     """conv_init + bn_init + N x (conv3x3, conv1x1)."""
     ch = cfg.num_res_block_channels
@@ -60,7 +52,7 @@ def init_film_trunk(gen, cfg):
 def _trunk_convs(params, state, cfg, rows, new_state):
     """(conv, block_convs) of the trunk's mode; block_convs is None unless the
     fused int8 1x1 kernel runs."""
-    dtype = _DTYPES[cfg.compute_dtype]
+    dtype = DTYPES[cfg.compute_dtype]
     if cfg.int8_trunk_calibrate:
         captured, captured_wq = {}, {}
         new_state["int8_scales"] = captured
@@ -106,7 +98,7 @@ def film_trunk(params, state, feats, film_values, frame_mask, cfg, *, train=Fals
 
     Conv outputs are stored at the compute dtype, BN works in f32, and the
     FiLM values are cast to the conv output's dtype."""
-    _eval_only(train)
+    eval_only(train)
     B, T = feats.shape[:2]
     ch = cfg.num_res_block_channels
     new_state = dict(state)
@@ -177,10 +169,10 @@ def init_film_attn(gen, cfg, device):
     return tree_to(params, device), tree_to({"trunk": trunk_state}, device)
 
 
-def apply_film_attn(params, state, batch, cfg, *, train=False):
+def apply_film_attn(params, state, batch, cfg, *, train=False, generator=None):
     """Eval forward: batch (see models/base.py) -> (logits [B, num_classes],
     new_state). Kernels run where ``cfg.use_pallas_kernels`` asks for them."""
-    _eval_only(train)
+    eval_only(train)
     feats, v_lens = batch["v_features"], batch["v_len"]
     q, q_lens = batch["question"], batch["q_len"]
     B, T = feats.shape[:2]

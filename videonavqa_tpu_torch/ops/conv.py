@@ -1,4 +1,4 @@
-"""Channels-last 2-D convolution with SAME padding over OIHW weights.
+"""Channels-last 2-D convolution with SAME padding over OIHW weights, and max pooling.
 
 The JAX package leaves these convs to XLA, so the port leaves them to
 PyTorch: ``F.conv2d`` on a channels-last view (no layout copy of the
@@ -31,3 +31,11 @@ def conv2d(params, x, *, dtype=None):
     if b is not None:
         y = y + b.to(y.dtype)
     return y
+
+
+def max_pool2d(x):
+    """2x2 max pool, stride 2, over H and W of x [..., H, W, C] (floor mode:
+    an odd last row or column is dropped)."""
+    H, W, C = x.shape[-3:]
+    x = x[..., :H // 2 * 2, :W // 2 * 2, :]
+    return x.reshape(*x.shape[:-3], H // 2, 2, W // 2, 2, C).amax(dim=(-4, -2))

@@ -1,7 +1,9 @@
 """The reference's weight-init scheme, drawn from a ``torch.Generator``.
 
 Xavier-uniform weights with zero bias for Linear/Conv; Xavier ih, orthogonal
-hh and forget-gate bias 1 for LSTMs. These let the port build full-width
+hh and forget-gate bias 1 for LSTMs; and torch's own defaults
+(``torch_default_*``, ``kaiming_uniform``) for the layers the reference never
+re-initializes (MAC's LSTMs, lstm_proj and third conv). These let the port build full-width
 weights with no JAX. They do not give the JAX package's numbers (another
 generator): parity tests bridge the JAX weights instead.
 
@@ -35,6 +37,37 @@ def xavier_uniform(gen, shape, layout: str = "oi", gain: float = 1.0):
     fan_in, fan_out = _fans(shape, layout)
     bound = gain * math.sqrt(6.0 / (fan_in + fan_out))
     return uniform(gen, shape, -bound, bound)
+
+
+def kaiming_uniform(gen, shape, layout: str = "oi", a: float = 0.0):
+    """torch.nn.init.kaiming_uniform_ with mode='fan_in', leaky_relu."""
+    fan_in, _ = _fans(shape, layout)
+    bound = math.sqrt(3.0) * math.sqrt(2.0 / (1.0 + a * a)) / math.sqrt(fan_in)
+    return uniform(gen, shape, -bound, bound)
+
+
+def torch_default_linear(gen, out_features: int, in_features: int):
+    """torch's default nn.Linear init: kaiming_uniform(a=sqrt(5)) weight and
+    uniform(+-1/sqrt(fan_in)) bias."""
+    bound = 1.0 / math.sqrt(in_features)
+    return {"weight": kaiming_uniform(gen, (out_features, in_features), "oi", a=math.sqrt(5.0)),
+            "bias": uniform(gen, (out_features,), -bound, bound)}
+
+
+def torch_default_conv2d(gen, kh: int, kw: int, cin: int, cout: int):
+    """torch's default nn.Conv2d init (kaiming_uniform(a=sqrt(5)) + uniform bias)."""
+    bound = 1.0 / math.sqrt(cin * kh * kw)
+    return {"weight": kaiming_uniform(gen, (cout, cin, kh, kw), "oihw", a=math.sqrt(5.0)),
+            "bias": uniform(gen, (cout,), -bound, bound)}
+
+
+def torch_default_lstm(gen, input_size: int, hidden_size: int):
+    """torch's default nn.LSTM init: every weight and bias uniform(+-1/sqrt(H))."""
+    bound = 1.0 / math.sqrt(hidden_size)
+    return {"w_ih": uniform(gen, (4 * hidden_size, input_size), -bound, bound),
+            "w_hh": uniform(gen, (4 * hidden_size, hidden_size), -bound, bound),
+            "b_ih": uniform(gen, (4 * hidden_size,), -bound, bound),
+            "b_hh": uniform(gen, (4 * hidden_size,), -bound, bound)}
 
 
 def orthogonal(gen, shape):

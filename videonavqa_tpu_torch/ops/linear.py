@@ -33,7 +33,12 @@ def linear_chw(params, x):
     return y
 
 
-def embedding(params, tokens):
-    """Token lookup; ``weight`` is [vocab, dim]. film_attn's embedding has no
-    padding_idx: padded positions look up the live row 0."""
-    return params["weight"][tokens.long()]
+def embedding(params, tokens, *, padding_idx=None):
+    """Token lookup; ``weight`` is [vocab, dim]. With ``padding_idx`` the
+    output is zero at that token (torch's nn.Embedding(padding_idx=...) with
+    the row kept at zero). Models whose embedding has none (film_attn, the
+    concat models, mac) pass None: padded positions look up the live row 0."""
+    out = params["weight"][tokens.long()]
+    if padding_idx is not None:
+        out = out * (tokens != padding_idx)[..., None].to(out.dtype)
+    return out

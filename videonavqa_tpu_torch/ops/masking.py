@@ -22,6 +22,13 @@ def attn_frame_mask(v_lens, t: int):
     return torch.where(masked, NEG_MASK_VALUE, 0.0).float()
 
 
+def word_softmax_mask(q_lens, t: int):
+    """[1, T] f32 additive mask of a softmax over words: 0 within the *batch's*
+    max question length (torch's pad_packed width), -inf beyond it."""
+    t_idx = torch.arange(t, device=q_lens.device)[None, :]
+    return torch.where(t_idx < q_lens.max(), 0.0, -torch.inf)
+
+
 def mask_invalid(x, lens):
     """Zero positions t >= len of x: [B, T, ...]."""
     mask = length_mask(lens, x.shape[1])

@@ -1,15 +1,18 @@
-"""Serving engine over precomputed frozen-stem features.
+"""Serving engine: padded fixed-shape micro-batches through one loaded model.
 
-The core of the JAX package's ``cli/serve.py`` InferenceEngine in its
-feature-cache mode: the model loads once, and each micro-batch is padded to
-``max_batch`` rows (padding rows have v_len = q_len = 1) and its frame axis
-trimmed to the smallest frame bucket that covers its longest video. With the
-int8 trunk, the FIRST micro-batch runs the f32 calibration forward on the
-padded batch exactly as it stands (padding rows enter the absmax) and every
-later batch serves static int8 from the recorded state.
+The core of the JAX package's ``cli/serve.py`` InferenceEngine: the model
+loads once, and each micro-batch is padded to ``max_batch`` rows (padding
+rows have v_len = q_len = 1) and its frame axis trimmed to the smallest frame
+bucket that covers its longest video. What an item carries depends on the
+model: precomputed frozen-stem features for a model that ``uses_stem``, raw
+uint8 frames ``[T, 160, 208, 3]`` for one that takes video itself, and
+nothing visual for a question-only model. With the int8 trunk, the FIRST
+micro-batch runs the f32 calibration forward on the padded batch exactly as
+it stands (padding rows enter the absmax) and every later batch serves
+static int8 from the recorded state.
 
-The HTTP daemon, the micro-batcher, the feature-cache loader and hot reload
-are not ported yet.
+The frozen stem (video in, features out), the HTTP daemon, the micro-batcher,
+the feature-cache loader and hot reload are not ported yet.
 """
 
 from __future__ import annotations
@@ -30,15 +33,17 @@ class InferenceEngine:
 
     Weights come from a JAX-package checkpoint (``checkpoint_path``) or from
     the reference init drawn from ``torch.Generator().manual_seed(seed)``.
-    ``device`` defaults to the card; pass ``"cpu"`` to run the plain path."""
+    ``device`` defaults to the card; pass ``"cpu"`` to run the plain path.
+    The seed also starts the generator of a model that draws at eval."""
 
     def __init__(self, cfg, *, checkpoint_path=None, seed=0, max_batch=8,
                  frame_buckets=C.FRAME_BUCKETS, device=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.spec = get_model(cfg.model)
-        if not self.spec.uses_stem:
-            raise ValueError(f"{cfg.model} does not consume frozen-stem features")
+        self.visual_key = ("v_features" if self.spec.uses_stem
+                           else "video" if self.spec.needs_video else None)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.B = max_batch
         self.frame_buckets = tuple(frame_buckets)
         if checkpoint_path:
@@ -57,28 +62,33 @@ class InferenceEngine:
     def make_batch(self, items):
         """The padded batch of ``items`` on the engine's device.
 
-        items: list of (features [35, 10, 13, C] bf16/fp8 tensor, v_len,
-        tokens)."""
+        items: list of (visual, v_len, tokens); visual is the item's frames
+        (features [35, 10, 13, C] bf16/fp8, or video [35, 160, 208, 3] uint8)
+        and is ignored (pass None) for a question-only model."""
         n = len(items)
         if not 1 <= n <= self.B:
             raise ValueError(f"a micro-batch holds 1..{self.B} items, got {n}")
-        t_b = self.bucket_for(max(max(int(vl), 1) for _, vl, _ in items))
-        first = torch.as_tensor(items[0][0])
-        feats = torch.zeros((self.B, t_b, *first.shape[1:]), dtype=first.dtype,
-                            device=self.device)
         question = torch.zeros((self.B, C.MAX_Q_LEN), dtype=torch.int32, device=self.device)
         v_len = torch.ones(self.B, dtype=torch.int32)
         q_len = torch.ones(self.B, dtype=torch.int32)
-        for i, (frames, vl, tokens) in enumerate(items):
-            frames = torch.as_tensor(frames)
-            t_i = min(frames.shape[0], t_b)
-            feats[i, :t_i] = frames[:t_i].to(self.device)
+        for i, (_, vl, tokens) in enumerate(items):
             tokens = torch.as_tensor(tokens, dtype=torch.int32)[:C.MAX_Q_LEN]
             question[i, :len(tokens)] = tokens.to(self.device)
             v_len[i] = max(int(vl), 1)
             q_len[i] = max(len(tokens), 1)
-        return {"v_features": feats, "question": question,
-                "v_len": v_len.to(self.device), "q_len": q_len.to(self.device)}
+        batch = {"question": question, "v_len": v_len.to(self.device),
+                 "q_len": q_len.to(self.device)}
+        if self.visual_key is not None:
+            t_b = self.bucket_for(int(v_len[:n].max()))
+            first = torch.as_tensor(items[0][0])
+            visual = torch.zeros((self.B, t_b, *first.shape[1:]), dtype=first.dtype,
+                                 device=self.device)
+            for i, (frames, _, _) in enumerate(items):
+                frames = torch.as_tensor(frames)
+                t_i = min(frames.shape[0], t_b)
+                visual[i, :t_i] = frames[:t_i].to(self.device)
+            batch[self.visual_key] = visual
+        return batch
 
     def run_batch(self, items):
         """[n, num_classes] f32 probabilities of ``items`` (padding rows dropped)."""
@@ -86,9 +96,10 @@ class InferenceEngine:
         with torch.inference_mode():
             if self.needs_int8_calibration:
                 logits, self.state = forward(self.spec, self._calibrate_cfg, self.params,
-                                             self.state, batch)
+                                             self.state, batch, self.generator)
                 self.needs_int8_calibration = False
             else:
-                logits, _ = forward(self.spec, self.cfg, self.params, self.state, batch)
+                logits, _ = forward(self.spec, self.cfg, self.params, self.state, batch,
+                                    self.generator)
             probs = torch.softmax(logits, dim=-1)
         return probs[:len(items)].cpu().numpy()

@@ -4,7 +4,9 @@ A JAX checkpoint is one .npz of '/'-joined pytree paths (``params/...``,
 ``state/...``, ``opt/...``) plus a JSON ``__meta__`` entry. It is read here
 with numpy alone. Layouts: conv kernels go from HWIO to OIHW (every 4-D
 leaf, the calibrated ``int8_wq`` kernels included); Linear and LSTM weights
-are already ``[out, in]`` and pass as they are, as do ``int8_scales``.
+are already ``[out, in]`` and pass as they are, as do ``int8_scales``. A list
+in the JAX pytree (MAC's twelve ``position_aware`` linears) is saved under the
+keys ``0``, ``1``, ...; it comes back as a list.
 """
 
 from __future__ import annotations
@@ -44,7 +46,18 @@ def _nest(flat, prefix):
         for p in parents:
             node = node.setdefault(p, {})
         node[leaf] = _to_torch(a)
-    return tree
+    return _lists(tree)
+
+
+def _lists(node):
+    """Dicts keyed '0'..'n-1' (a saved list) become lists, at any depth."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _lists(v) for k, v in node.items()}
+    if node and all(k.isdigit() for k in node) and \
+            sorted(int(k) for k in node) == list(range(len(node))):
+        return [node[str(i)] for i in range(len(node))]
+    return node
 
 
 def params_from_jax(flat: dict[str, np.ndarray]):

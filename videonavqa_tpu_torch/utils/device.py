@@ -23,7 +23,9 @@ def resolve_device(device=None) -> torch.device:
 
 
 def tree_to(tree, device):
-    """A nested dict of tensors, moved to ``device``."""
+    """A nested dict (and list) of tensors, moved to ``device``."""
     if isinstance(tree, dict):
         return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
     return tree.to(device)
