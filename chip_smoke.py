@@ -17,20 +17,26 @@ kernel's plain version):
 4. serve   — InferenceEngine at the film_attn_pt eval.sh preset (5 FiLM
              blocks x 1024 channels, hidden/attention/embed 128, 512 input
              channels, bf16, 35 frames, 56 tokens, 134 words, 70 classes)
-             with seeded random weights and seeded bf16 features, the static
-             int8 trunk and the kernels on. It calibrates on its first
-             micro-batch, then serves batch 32 in two frame buckets (above
-             the fused-1x1 row gate) and batch 1 at 35 frames (under it),
-             with every launch counter set to 0 just before and read just
-             after; then holds the kernel path against the plain path on the
-             same calibrated state and times ms/video.
-             The same for time_multi_hop at its eval.sh preset (3 FiLM blocks
-             x 1024 channels, 64 tail channels, hidden/embed 128, int8 trunk)
+             from seeded uint8 video [35, 160, 208, 3] through the engine's
+             video mode (the frozen stem from seed 1234, VGG block 1 through
+             its kernel; the model from seed 0), the static int8 trunk and
+             the kernels on. It calibrates on its first micro-batch, then
+             serves batch 32 (above the fused-1x1 row gate) and batch 1
+             (under it) at 35 frames, with every launch counter set to 0 just
+             before and read just after; then holds the kernel path against
+             the plain path on the same calibrated state and times ms/video
+             and the stem's share of a batch.
+             The same from seeded bf16 features for time_multi_hop at its
+             eval.sh preset (3 FiLM blocks x 1024 channels, 64 tail
+             channels, hidden/embed 128, int8 trunk)
              at batch 16 in two frame buckets and batch 1, where the LSTM
              kernel launches once per frame; and for lstm, v_only_cnn2d_lstm,
              concat2d and mac at the ModelConfig defaults (hidden 128,
              mac_dim 512, 12 MAC steps) at batch 32 and batch 1, the video
              models from seeded uint8 frames [35, 160, 208, 3].
+
+Run one kernel's check alone (it builds only that source), e.g.
+``python3 -c "import torch, chip_smoke as cs; cs.check_vgg_block1(torch.device('cuda'))"``.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -46,22 +52,27 @@ import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
 from videonavqa_tpu_torch.kernels import _build
 from videonavqa_tpu_torch.kernels import attn_tail as attn_mod
 from videonavqa_tpu_torch.kernels import film_reencode as reenc_mod
 from videonavqa_tpu_torch.kernels import int8_matmul as int8_mod
 from videonavqa_tpu_torch.kernels import lstm as lstm_mod
+from videonavqa_tpu_torch.kernels import vgg_block1 as block1_mod
 from videonavqa_tpu_torch.models import ModelConfig
+from videonavqa_tpu_torch.models.base import DTYPES
 from videonavqa_tpu_torch.ops import initializers as init
 from videonavqa_tpu_torch.ops.masking import attn_frame_mask, length_mask
 from videonavqa_tpu_torch.ops.quant import act_scale, quantize_act, quantize_weight_channelwise
+from videonavqa_tpu_torch.ops.video import normalize_video
 from videonavqa_tpu_torch.serve.engine import InferenceEngine
-from videonavqa_tpu_torch.train.step import forward
+from videonavqa_tpu_torch.stem import stem_features
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12        # outside the tensor cores
+BF16_FLOPS = 989e12      # tensor cores
 INT8_OPS = 1979e12       # tensor cores
 
 # Tolerances.
@@ -70,6 +81,7 @@ YQ_MAX_STEP = 1          # int8 requant: at most one step apart ...
 YQ_MAX_FRACTION = 1e-4   # ... on at most this share of elements
 PROB_ATOL = 2e-2         # serving, kernel path vs plain path, probabilities
 ARGMAX_MARGIN = 1e-2     # argmax must agree where the top-2 logit margin is wider
+BLOCK1_F32_TOL = (2e-5, 2e-6)   # (rtol, atol) f32 block 1: the JAX kernel test's own
 
 REPO_SOURCE = {
     "film_reencode": ("videonavqa_tpu_torch/csrc/film_reencode.cu",
@@ -80,9 +92,11 @@ REPO_SOURCE = {
                           "videonavqa_tpu/kernels/int8_matmul_pallas.py:58"),
     "lstm": ("videonavqa_tpu_torch/csrc/lstm.cu",
              "videonavqa_tpu/kernels/lstm_pallas.py:54"),
+    "vgg_block1": ("videonavqa_tpu_torch/csrc/vgg_block1.cu",
+                   "videonavqa_tpu/kernels/vgg_block1_pallas.py:109"),
 }
 COUNTERS = {"film_reencode": reenc_mod, "attn_tail": attn_mod, "int8_matmul_fused": int8_mod,
-            "lstm": lstm_mod}
+            "lstm": lstm_mod, "vgg_block1": block1_mod}
 
 
 def log(msg):
@@ -370,6 +384,88 @@ def check_int8_matmul(dev):
     return rows
 
 
+# (M frames, dtype) of the block-1 check: batch 32 x 35 frames (the served
+# batch, timed), batch 1 x 35, an odd count, and f32 for the tight check.
+BLOCK1_RUNS = ((1120, torch.bfloat16), (35, torch.bfloat16), (7, torch.bfloat16),
+               (35, torch.float32))
+
+
+def check_vgg_block1(dev):
+    """vgg_block1 against vgg_block1_plain at BLOCK1_RUNS, biases drawn
+    non-zero so h1 outside the frame (zero) differs from relu(b1).
+
+    f32: BLOCK1_F32_TOL. bf16: both compute h1 bit for bit alike (h1_plain),
+    so they differ only in the order of conv1_2's 576 f32 sums. Each output
+    must lie within one bf16 ulp of the plain one, plus the f32 bound on that
+    order, 2 * 576 * 2^-24 * sum|terms| (sum|terms| = conv(|h1|, |w2|) + |b2|,
+    the largest over the pooled window): ReLU cuts at zero, where the two
+    sums can land on either side. ``library_ms`` is cuDNN's block 1
+    (F.conv2d x2 with bias, ReLU, 2x2 max pool, channels-last bf16), a
+    yardstick the port never calls."""
+    torch.backends.cudnn.allow_tf32 = False   # the plain f32 conv in full f32, run alone too
+    gen = torch.Generator().manual_seed(10)
+    params = {name: init.reference_conv2d(gen, 3, 3, cin, 64)
+              for name, cin in (("conv1_1", 3), ("conv1_2", 64))}
+    for p in params.values():
+        p["bias"] = 0.1 * torch.randn(64, generator=gen)
+    params = {k: {n: t.to(dev) for n, t in v.items()} for k, v in params.items()}
+    gdev = torch.Generator(device=dev).manual_seed(10)
+    rows = {}
+    for M, dtype in BLOCK1_RUNS:
+        x = torch.randint(0, 256, (M, 160, 208, 3), generator=gdev, device=dev,
+                          dtype=torch.uint8).float() / 255.0
+        got = block1_mod.vgg_block1(params, x, dtype=dtype).float()
+        torch.cuda.synchronize()
+        err, worst, beyond_ulp = 0.0, 0.0, 0
+        for lo in range(0, M, 160):   # the plain version in chunks: its f32 temporaries
+            xs = x[lo:lo + 160]
+            want = block1_mod.vgg_block1_plain(params, xs, dtype=dtype).float()
+            diff = (got[lo:lo + 160] - want).abs()
+            if dtype == torch.float32:
+                tol = BLOCK1_F32_TOL[1] + BLOCK1_F32_TOL[0] * want.abs()
+            else:
+                h1 = block1_mod.h1_plain(params, xs, dtype=dtype).float().abs()
+                w2 = params["conv1_2"]["weight"].to(dtype).float().abs()
+                terms = F.conv2d(h1.permute(0, 3, 1, 2), w2, padding=1)
+                terms = F.max_pool2d(terms + params["conv1_2"]["bias"].abs()[:, None, None], 2)
+                ulp = _bf16_ulp(want)
+                tol = ulp + 2 * 576 * 2.0 ** -24 * terms.permute(0, 2, 3, 1)
+                beyond_ulp += int((diff > ulp).sum())
+                del h1, terms
+            err = max(err, diff.max().item())
+            worst = max(worst, (diff / tol).max().item())
+        tag = f"M={M} {str(dtype)[6:]}"
+        log(f"  vgg_block1 {tag}: max_abs_err {err:.3e}, worst |err| / tolerance {worst:.3f}"
+            + ("" if dtype == torch.float32 else f", elements beyond 1 bf16 ulp: {beyond_ulp}"))
+        if not worst <= 1.0:
+            raise AssertionError(f"vgg_block1 {tag} disagrees: {err}")
+        rows[(M, dtype)] = row = dict(max_abs_err=err)
+        if (M, dtype) != BLOCK1_RUNS[0]:
+            continue
+        ops = M * 2 * 160 * 208 * 64 * (27 + 576)
+        nbytes = M * 160 * 208 * 3 * 2 + 64 * (27 + 576) * 2 + 2 * 64 * 4 + M * 80 * 104 * 64 * 2
+        b_ms, b_by = bound_ms(nbytes, ops, BF16_FLOPS)
+        xb = x.to(torch.bfloat16).permute(0, 3, 1, 2)   # NCHW view, channels-last memory
+        lib_w = [params[n][k].to(torch.bfloat16) for n in ("conv1_1", "conv1_2")
+                 for k in ("weight", "bias")]
+        lib_w[0] = lib_w[0].contiguous(memory_format=torch.channels_last)
+        lib_w[2] = lib_w[2].contiguous(memory_format=torch.channels_last)
+
+        def library():
+            h = F.relu(F.conv2d(xb, lib_w[0], lib_w[1], padding=1))
+            return F.max_pool2d(F.relu(F.conv2d(h, lib_w[2], lib_w[3], padding=1)), 2)
+
+        row.update(bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library, 10),
+                   **timings(lambda: block1_mod.vgg_block1(params, x, dtype=dtype),
+                             lambda: block1_mod.vgg_block1_plain(params, x, dtype=dtype),
+                             "vgg_block1_kernel", 10, 2))
+        log(f"  vgg_block1 {tag}: {row['ms']:.4f} ms (wrapper {row['wrapper_ms']:.4f}),"
+            f" plain {row['plain_ms']:.3f} ms, cuDNN block 1 {row['library_ms']:.4f} ms,"
+            f" bound {b_ms:.5f} ms by {b_by} ({ops / 1e12:.3f} TFLOP)")
+        del xb, lib_w
+    return rows
+
+
 def reset_counters():
     for mod in COUNTERS.values():
         mod.launches = 0
@@ -395,10 +491,8 @@ def compare_paths(eng, its):
     plain_cfg = dataclasses.replace(cfg, use_pallas_kernels=False)
     batch = eng.make_batch(its)
     with torch.inference_mode():
-        lk, _ = forward(eng.spec, cfg, eng.params, eng.state, batch,
-                        torch.Generator(device=eng.device).manual_seed(11))
-        lp, _ = forward(eng.spec, plain_cfg, eng.params, eng.state, batch,
-                        torch.Generator(device=eng.device).manual_seed(11))
+        lk, _ = eng.forward(batch, cfg, torch.Generator(device=eng.device).manual_seed(11))
+        lp, _ = eng.forward(batch, plain_cfg, torch.Generator(device=eng.device).manual_seed(11))
     n = len(its)
     lk, lp = lk[:n].float(), lp[:n].float()
     pdiff = (torch.softmax(lk, -1) - torch.softmax(lp, -1)).abs().max().item()
@@ -500,15 +594,74 @@ def expect_launches(model, launches, want):
                                  f" {'at least 1' if w is None else w}")
 
 
-def serve_film_attn(dev, feats):
+def stem_share(label, eng, its, iters=3, top=8):
+    """Logs the stem's ms and the whole forward's ms of one padded video batch
+    (CUDA events), and the stem's device time by kernel (profiler)."""
+    batch = eng.make_batch(its)
+    dtype = DTYPES[eng.cfg.compute_dtype]
+
+    def stem():
+        return stem_features(*eng.stem, normalize_video(batch["video"]), dtype=dtype,
+                             use_kernel=eng.cfg.use_pallas_kernels)
+
+    with torch.inference_mode():
+        stem_ms = time_ms(stem, iters, 1)
+        whole_ms = time_ms(lambda: eng.forward(batch), iters, 1)
+        busy, _, rows = device_breakdown(stem, top)
+    log(f"  {label}: stem {stem_ms:.3f} ms of {whole_ms:.3f} ms a forward (kernel path);"
+        f" the stem's device time {busy:.3f} ms, by kernel:")
+    for name, t in rows:
+        log(f"    {t:9.4f} ms  {name[:110]}")
+
+
+def serve_film_attn(dev, video):
+    """The eval.sh preset from raw uint8 video through the engine's video mode:
+    calibrate, then batch 32 and batch 1 at 35 frames, counted; the kernel
+    path against the plain path; ms/video and the stem's share."""
     cfg = ModelConfig(model="film_attn_pt", num_res_blocks=5, num_res_block_channels=1024,
                       hidden_size=128, at_hidden_size=128, embed_size=128,
                       num_input_channels=512, compute_dtype="bfloat16", max_num_frames=35,
                       max_q_len=56, vocab_size=134, num_classes=70,
                       use_pallas_kernels=True, use_int8_trunk=True)
-    launches, ms, worst = serve_stem_model(dev, cfg, feats, 32, 5)
-    expect_launches(cfg.model, launches,
-                    {"film_reencode": None, "attn_tail": None, "int8_matmul_fused": None})
+    t0 = time.perf_counter()
+    eng_big = InferenceEngine(cfg, seed=0, max_batch=32, device=dev, from_video=True)
+    eng1 = InferenceEngine(cfg, seed=0, max_batch=1, device=dev, from_video=True,
+                           stem=eng_big.stem)
+    log(f"  {cfg.model} weights: stem from seed 1234, 2 engines from seed 0 in"
+        f" {time.perf_counter() - t0:.1f} s")
+    cpu_gen = torch.Generator().manual_seed(5)
+    cal = feature_items(video, cpu_gen, 0, 32, 35)
+    b35 = feature_items(video, cpu_gen, 0, 32, 35)
+    b35[0] = (b35[0][0], 35, b35[0][2])
+    one = [(video[32], 35, feature_items(video, cpu_gen, 32, 33, 35)[0][2])]
+
+    t0 = time.perf_counter()
+    eng_big.run_batch(cal)   # first micro-batch: the f32 calibration pass, on the stem's output
+    eng1.run_batch(one)
+    torch.cuda.synchronize()
+    log(f"  int8 calibration on each engine's first micro-batch: {time.perf_counter() - t0:.2f} s")
+    if eng_big.needs_int8_calibration or eng1.needs_int8_calibration:
+        raise AssertionError("the engines did not calibrate")
+    runs = ((eng_big, b35), (eng1, one))
+    for eng, its in runs:   # warm-up
+        eng.run_batch(its)
+
+    reset_counters()
+    outs = [eng.run_batch(its) for eng, its in runs]
+    torch.cuda.synchronize()
+    launches = read_counters()
+    log(f"  {cfg.model} from video, launches on its path (batch 32 and batch 1 at 35 frames):"
+        f" {launches}")
+    expect_launches(cfg.model, launches, {"vgg_block1": 2, "film_reencode": None,
+                                          "attn_tail": None, "int8_matmul_fused": None})
+    for probs, (_, its) in zip(outs, runs):
+        check_probs(probs, len(its))
+    worst = max(compare_paths(eng, its) for eng, its in runs)
+    ms = {}
+    for label, eng, its, iters in ((f"{cfg.model} video batch 32 T35", eng_big, b35, 3),
+                                   (f"{cfg.model} video batch 1 T35", eng1, one, 10)):
+        ms[label] = time_paths(label, eng, its, iters)
+        stem_share(label, eng, its)
     return launches, ms, worst
 
 
@@ -567,9 +720,11 @@ def serve(dev):
     gen = torch.Generator(device=dev).manual_seed(4)
     feats = torch.relu(torch.randn((32 * 3 + 1, 35, 10, 13, 512), generator=gen, device=dev)
                        ).to(torch.bfloat16)
+    video = torch.randint(0, 256, (33, 35, 160, 208, 3), generator=gen, device=dev,
+                          dtype=torch.uint8)
     total = dict.fromkeys(COUNTERS, 0)
     ms, worst = {}, 0.0
-    paths = [lambda: serve_film_attn(dev, feats), lambda: serve_time_multi_hop(dev, feats)]
+    paths = [lambda: serve_film_attn(dev, video), lambda: serve_time_multi_hop(dev, feats)]
     paths += [lambda m=m, n=n: serve_zoo_model(dev, m, feats, n)
               for m, n in (("lstm", 1), ("v_only_cnn2d_lstm", 1), ("concat2d", 2), ("mac", 3))]
     for path in paths:
@@ -590,6 +745,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    start = time.perf_counter()
     log("phase build")
     t0 = time.perf_counter()
     _build.build_all()
@@ -610,6 +766,7 @@ def main():
     attn = check_attn_tail(dev)
     int8 = check_int8_matmul(dev)
     lstm = check_lstm(dev)
+    block1 = check_vgg_block1(dev)
 
     log("phase serve")
     launches, ms, worst = serve(dev)
@@ -629,10 +786,13 @@ def main():
         entry("attn_tail", attn[(32, 35)], max(r["max_abs_err"] for r in attn.values())),
         entry("int8_matmul_fused", int8["main"], max(int8["errs"])),
         entry("lstm", lstm[LSTM_MAIN], max(r["max_abs_err"] for r in lstm.values())),
+        entry("vgg_block1", block1[BLOCK1_RUNS[0]],
+              max(r["max_abs_err"] for r in block1.values())),
     ]
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was launched on no served path")
+    log(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

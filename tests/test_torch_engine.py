@@ -169,6 +169,25 @@ def test_bucket_for():
         eng.run_batch(_items(0, 3, (1, 2, 3)))  # more items than max_batch
 
 
+@pytest.mark.parametrize("model,from_video,key", [
+    ("film_attn_pt", False, "v_features"), ("film_attn_pt", True, "video"),
+    ("v_only_cnn2d_lstm", False, "video"), ("v_only_cnn2d_lstm", True, "video"),
+    ("lstm", False, None)])
+def test_what_an_item_carries(model, from_video, key):
+    """Today's callers keep today's items; video mode adds the stem for a stem
+    model only (a model that takes frames itself gets them as before)."""
+    eng = InferenceEngine(ModelConfig(**{**SMALL, "model": model}), max_batch=1, device="cpu",
+                          from_video=from_video)
+    assert eng.visual_key == key
+    assert (eng.stem is not None) == (model == "film_attn_pt" and from_video)
+
+
+def test_video_mode_refuses_a_model_without_video():
+    with pytest.raises(ValueError, match="takes no video"):
+        InferenceEngine(ModelConfig(**{**SMALL, "model": "lstm"}), max_batch=1, device="cpu",
+                        from_video=True)
+
+
 def test_default_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -192,9 +211,10 @@ bad = sorted(m for m in sys.modules
 print(len(mods), bad)
 assert not bad, bad
 for want in ('kernels.lstm', 'models.q_only_lstm', 'models.time_multi_hop',
-             'models.v_only_cnn2d_lstm', 'models.concat2d', 'models.mac', 'ops.video'):
+             'models.v_only_cnn2d_lstm', 'models.concat2d', 'models.mac', 'ops.video',
+             'stem', 'stem.vgg', 'stem.obj_detector', 'kernels.vgg_block1'):
     assert 'videonavqa_tpu_torch.' + want in mods, want
-assert len(mods) >= 31, len(mods)
+assert len(mods) >= 35, len(mods)
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,

@@ -26,6 +26,7 @@ from videonavqa_tpu_torch.kernels import attn_tail as attn_mod
 from videonavqa_tpu_torch.kernels import film_reencode as reenc_mod
 from videonavqa_tpu_torch.kernels import int8_matmul as int8_mod
 from videonavqa_tpu_torch.kernels import lstm as lstm_mod
+from videonavqa_tpu_torch.kernels import vgg_block1 as block1_mod
 from videonavqa_tpu_torch.ops import lstm as ops_lstm
 from videonavqa_tpu_torch.ops.linear import linear
 
@@ -172,6 +173,12 @@ def test_build_without_nvcc_raises(monkeypatch):
         _build.load("attn_tail")
 
 
+def test_build_list_names_every_source():
+    """build_all starts one nvcc per source at once; a source missing from the
+    list would build only at its first launch, inside a timed run."""
+    assert sorted(_build.SOURCES) == sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+
+
 def test_wrappers_refuse_non_cuda_non_cpu_tensors():
     """A wrapper takes the plain version only for CPU tensors; anything else
     goes to the kernel, which checks its inputs and raises."""
@@ -194,3 +201,44 @@ def test_lstm_kernel_refuses_shapes_it_does_not_take(B, H):
     with pytest.raises(ValueError, match="hidden size other than 128"):
         lstm_mod.lstm(m(5, B, 4 * H), m(4 * H, H), m(4 * H), m(B, dtype=torch.int32),
                       m(B, H), m(B, H))
+
+
+def _block1_params(device="cpu"):
+    r = np.random.default_rng(8)
+    conv = lambda cout, cin: {
+        "weight": torch.from_numpy((0.1 * r.standard_normal((cout, cin, 3, 3))).astype(np.float32)),
+        "bias": torch.from_numpy((0.1 * r.standard_normal(cout)).astype(np.float32))}
+    params = {"conv1_1": conv(64, 3), "conv1_2": conv(64, 64)}
+    return {k: {n: t.to(device) for n, t in v.items()} for k, v in params.items()}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vgg_block1_cpu_takes_the_plain_route(dtype):
+    """On the CPU the wrapper is the plain version (the kernel is held against
+    it on the card by chip_smoke.py): no launch, the same numbers."""
+    x = torch.from_numpy(np.random.default_rng(9).random((1, 160, 208, 3), dtype=np.float32))
+    params = _block1_params()
+    before = block1_mod.launches
+    got = block1_mod.vgg_block1(params, x, dtype=dtype)
+    assert block1_mod.launches == before
+    assert got.shape == (1, 80, 104, 64) and got.dtype == dtype
+    want = block1_mod.vgg_block1_plain(params, x, dtype=dtype)
+    np.testing.assert_array_equal(got.float().numpy(), want.float().numpy())
+
+
+@pytest.mark.parametrize("shape", [(1, 160, 208, 4), (2, 80, 104, 3), (160, 208, 3),
+                                   (0, 160, 208, 3), (1, 208, 160, 3)])
+def test_vgg_block1_refuses_frames_it_does_not_take(shape):
+    """Frames are exactly [M, 160, 208, 3]; anything else raises, on the CPU
+    too (there is no plain fallback for another shape)."""
+    with pytest.raises(ValueError, match="frames must be"):
+        block1_mod.vgg_block1(_block1_params(), torch.zeros(shape))
+
+
+def test_vgg_block1_refuses_other_dtypes_and_non_cuda_tensors():
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        block1_mod.vgg_block1(_block1_params(), torch.zeros((1, 160, 208, 3)),
+                              dtype=torch.float16)
+    with pytest.raises(ValueError, match="CUDA"):
+        block1_mod.vgg_block1(_block1_params("meta"),
+                              torch.empty((2, 160, 208, 3), device="meta"))

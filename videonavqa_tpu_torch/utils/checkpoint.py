@@ -6,7 +6,8 @@ with numpy alone. Layouts: conv kernels go from HWIO to OIHW (every 4-D
 leaf, the calibrated ``int8_wq`` kernels included); Linear and LSTM weights
 are already ``[out, in]`` and pass as they are, as do ``int8_scales``. A list
 in the JAX pytree (MAC's twelve ``position_aware`` linears) is saved under the
-keys ``0``, ``1``, ...; it comes back as a list.
+keys ``0``, ``1``, ...; it comes back as a list. ``stem_from_jax`` carries the
+frozen stem's trees (as numpy) across the same way.
 """
 
 from __future__ import annotations
@@ -70,3 +71,17 @@ def load_jax_checkpoint(path, device):
     flat, meta = read_npz(path)
     params, state = params_from_jax(flat)
     return tree_to(params, device), tree_to(state, device), meta
+
+
+def _tree_to_torch(node):
+    if isinstance(node, dict):
+        return {k: _tree_to_torch(v) for k, v in node.items()}
+    return _to_torch(np.asarray(node))
+
+
+def stem_from_jax(vgg_np, det_params_np, det_state_np, device):
+    """(vgg_params, det_params, det_state) on ``device`` from the JAX stem's
+    trees as numpy: ``init_vgg_partial`` and ``init_obj_detector`` (or the
+    weights that ``load_stem`` imports). HWIO conv kernels become OIHW."""
+    return tuple(tree_to(_tree_to_torch(t), device)
+                 for t in (vgg_np, det_params_np, det_state_np))
