@@ -17,15 +17,17 @@ kernel's plain version):
 4. serve   — InferenceEngine at the film_attn_pt eval.sh preset (5 FiLM
              blocks x 1024 channels, hidden/attention/embed 128, 512 input
              channels, bf16, 35 frames, 56 tokens, 134 words, 70 classes)
-             from seeded uint8 video [35, 160, 208, 3] through the engine's
-             video mode (the frozen stem from seed 1234, VGG block 1 through
-             its kernel; the model from seed 0), the static int8 trunk and
-             the kernels on. It calibrates on its first micro-batch, then
-             serves batch 32 (above the fused-1x1 row gate) and batch 1
-             (under it) at 35 frames, with every launch counter set to 0 just
-             before and read just after; then holds the kernel path against
-             the plain path on the same calibrated state and times ms/video
-             and the stem's share of a batch.
+             with the static int8 trunk and the kernels on, twice: from
+             seeded bf16 features, and from seeded uint8 video
+             [35, 160, 208, 3] through the engine's video mode (the frozen
+             stem from seed 1234, VGG block 1 through its kernel; the model
+             from seed 0). Each calibrates on its first micro-batch, then
+             serves other items: batch 32 (above the fused-1x1 row gate; from
+             features at frame buckets 20 and 35, from video at 35) and batch
+             1 (under it) at 35 frames, with every launch counter set to 0
+             just before and read just after; then holds the kernel path
+             against the plain path on the same calibrated state and times
+             ms/video, and from video the stem's share of a batch.
              The same from seeded bf16 features for time_multi_hop at its
              eval.sh preset (3 FiLM blocks x 1024 channels, 64 tail
              channels, hidden/embed 128, int8 trunk)
@@ -61,13 +63,10 @@ from videonavqa_tpu_torch.kernels import int8_matmul as int8_mod
 from videonavqa_tpu_torch.kernels import lstm as lstm_mod
 from videonavqa_tpu_torch.kernels import vgg_block1 as block1_mod
 from videonavqa_tpu_torch.models import ModelConfig
-from videonavqa_tpu_torch.models.base import DTYPES
 from videonavqa_tpu_torch.ops import initializers as init
 from videonavqa_tpu_torch.ops.masking import attn_frame_mask, length_mask
 from videonavqa_tpu_torch.ops.quant import act_scale, quantize_act, quantize_weight_channelwise
-from videonavqa_tpu_torch.ops.video import normalize_video
 from videonavqa_tpu_torch.serve.engine import InferenceEngine
-from videonavqa_tpu_torch.stem import stem_features
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -399,9 +398,8 @@ def check_vgg_block1(dev):
     must lie within one bf16 ulp of the plain one, plus the f32 bound on that
     order, 2 * 576 * 2^-24 * sum|terms| (sum|terms| = conv(|h1|, |w2|) + |b2|,
     the largest over the pooled window): ReLU cuts at zero, where the two
-    sums can land on either side. ``library_ms`` is cuDNN's block 1
-    (F.conv2d x2 with bias, ReLU, 2x2 max pool, channels-last bf16), a
-    yardstick the port never calls."""
+    sums can land on either side. ``library_ms`` is PyTorch's block 1 on
+    cuDNN (``cudnn_block1``), a yardstick the port never calls."""
     torch.backends.cudnn.allow_tf32 = False   # the plain f32 conv in full f32, run alone too
     gen = torch.Generator().manual_seed(10)
     params = {name: init.reference_conv2d(gen, 3, 3, cin, 64)
@@ -445,25 +443,75 @@ def check_vgg_block1(dev):
         ops = M * 2 * 160 * 208 * 64 * (27 + 576)
         nbytes = M * 160 * 208 * 3 * 2 + 64 * (27 + 576) * 2 + 2 * 64 * 4 + M * 80 * 104 * 64 * 2
         b_ms, b_by = bound_ms(nbytes, ops, BF16_FLOPS)
-        xb = x.to(torch.bfloat16).permute(0, 3, 1, 2)   # NCHW view, channels-last memory
-        lib_w = [params[n][k].to(torch.bfloat16) for n in ("conv1_1", "conv1_2")
-                 for k in ("weight", "bias")]
-        lib_w[0] = lib_w[0].contiguous(memory_format=torch.channels_last)
-        lib_w[2] = lib_w[2].contiguous(memory_format=torch.channels_last)
-
-        def library():
-            h = F.relu(F.conv2d(xb, lib_w[0], lib_w[1], padding=1))
-            return F.max_pool2d(F.relu(F.conv2d(h, lib_w[2], lib_w[3], padding=1)), 2)
-
-        row.update(bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library, 10),
+        lib_ms = cudnn_block1(params, x, got)
+        row.update(bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                    **timings(lambda: block1_mod.vgg_block1(params, x, dtype=dtype),
                              lambda: block1_mod.vgg_block1_plain(params, x, dtype=dtype),
                              "vgg_block1_kernel", 10, 2))
         log(f"  vgg_block1 {tag}: {row['ms']:.4f} ms (wrapper {row['wrapper_ms']:.4f}),"
-            f" plain {row['plain_ms']:.3f} ms, cuDNN block 1 {row['library_ms']:.4f} ms,"
+            f" plain {row['plain_ms']:.3f} ms, PyTorch block 1 {lib_ms:.4f} ms,"
             f" bound {b_ms:.5f} ms by {b_by} ({ops / 1e12:.3f} TFLOP)")
-        del xb, lib_w
     return rows
+
+
+def cudnn_block1(params, x, kernel_out):
+    """PyTorch's block 1 on the same frames in bf16, the yardstick of
+    vgg_block1, which the port never calls: F.conv2d x2 with bias, ReLU and
+    F.max_pool2d, channels-last (the frames' own memory order) and NCHW, each
+    with cudnn.benchmark off and on (on: cuDNN tries its algorithms for the
+    shape and keeps the fastest); and cuDNN's fused conv + bias + ReLU
+    (``torch.cudnn_convolution_relu``) x2 with the 2x2 max as one reduction,
+    channels-last, benchmark on. Logs each one's ms and its largest
+    difference from the kernel's output, and with benchmark on its device
+    time by kernel; returns the fastest ms."""
+    ws = [params[n][k].to(torch.bfloat16) for n in ("conv1_1", "conv1_2")
+          for k in ("weight", "bias")]
+    xb = x.to(torch.bfloat16).permute(0, 3, 1, 2)   # NCHW view of channels-last memory
+
+    def weights(fmt):
+        return [w.contiguous(memory_format=fmt) if w.dim() == 4 else w for w in ws]
+
+    def composed(inp, fmt):
+        w1, b1, w2, b2 = weights(fmt)
+
+        def run():
+            h = F.relu(F.conv2d(inp, w1, b1, padding=1))
+            return F.max_pool2d(F.relu(F.conv2d(h, w2, b2, padding=1)), 2).permute(0, 2, 3, 1)
+        return run
+
+    def fused():
+        w1, b1, w2, b2 = weights(torch.channels_last)
+
+        def conv_relu(h, w, b):
+            return torch.cudnn_convolution_relu(h, w, b, (1, 1), (1, 1), (1, 1), 1)
+        y = conv_relu(conv_relu(xb, w1, b1), w2, b2).permute(0, 2, 3, 1)   # NHWC memory
+        return y.reshape(-1, 80, 2, 104, 2, 64).amax(dim=(2, 4))
+
+    nchw = xb.contiguous()
+    variants = [("F.conv2d+relu+max_pool2d channels-last", False,
+                 composed(xb, torch.channels_last)),
+                ("F.conv2d+relu+max_pool2d channels-last", True, composed(xb, torch.channels_last)),
+                ("F.conv2d+relu+max_pool2d NCHW", False, composed(nchw, torch.contiguous_format)),
+                ("F.conv2d+relu+max_pool2d NCHW", True, composed(nchw, torch.contiguous_format)),
+                ("cudnn_convolution_relu x2 + amax pool channels-last", True, fused)]
+    saved = torch.backends.cudnn.benchmark
+    times = []
+    try:
+        for name, bench, fn in variants:
+            torch.backends.cudnn.benchmark = bench
+            ms = time_ms(fn, 10)
+            diff = (fn().float() - kernel_out).abs().max().item()
+            log(f"  PyTorch block 1, {name}, cudnn.benchmark {'on' if bench else 'off'}:"
+                f" {ms:.4f} ms, max |out - kernel out| {diff:.3e}")
+            times.append(ms)
+            if bench:
+                busy, _, rows = device_breakdown(fn, top=8)
+                log(f"    device time {busy:.3f} ms, by kernel:")
+                for kname, t in rows:
+                    log(f"    {t:9.4f} ms  {kname[:110]}")
+    finally:
+        torch.backends.cudnn.benchmark = saved
+    return min(times)
 
 
 def reset_counters():
@@ -598,11 +646,9 @@ def stem_share(label, eng, its, iters=3, top=8):
     """Logs the stem's ms and the whole forward's ms of one padded video batch
     (CUDA events), and the stem's device time by kernel (profiler)."""
     batch = eng.make_batch(its)
-    dtype = DTYPES[eng.cfg.compute_dtype]
 
     def stem():
-        return stem_features(*eng.stem, normalize_video(batch["video"]), dtype=dtype,
-                             use_kernel=eng.cfg.use_pallas_kernels)
+        return eng.features(batch)
 
     with torch.inference_mode():
         stem_ms = time_ms(stem, iters, 1)
@@ -614,15 +660,27 @@ def stem_share(label, eng, its, iters=3, top=8):
         log(f"    {t:9.4f} ms  {name[:110]}")
 
 
-def serve_film_attn(dev, video):
+FILM_ATTN_CFG = ModelConfig(model="film_attn_pt", num_res_blocks=5, num_res_block_channels=1024,
+                            hidden_size=128, at_hidden_size=128, embed_size=128,
+                            num_input_channels=512, compute_dtype="bfloat16", max_num_frames=35,
+                            max_q_len=56, vocab_size=134, num_classes=70,
+                            use_pallas_kernels=True, use_int8_trunk=True)
+FILM_ATTN_KERNELS = {"film_reencode": None, "attn_tail": None, "int8_matmul_fused": None}
+
+
+def serve_film_attn_features(dev, feats):
+    """The eval.sh preset over cached features (serve_stem_model)."""
+    launches, ms, worst = serve_stem_model(dev, FILM_ATTN_CFG, feats, 32, 5)
+    expect_launches(FILM_ATTN_CFG.model, launches, FILM_ATTN_KERNELS)
+    return launches, ms, worst
+
+
+def serve_film_attn_video(dev, video):
     """The eval.sh preset from raw uint8 video through the engine's video mode:
-    calibrate, then batch 32 and batch 1 at 35 frames, counted; the kernel
-    path against the plain path; ms/video and the stem's share."""
-    cfg = ModelConfig(model="film_attn_pt", num_res_blocks=5, num_res_block_channels=1024,
-                      hidden_size=128, at_hidden_size=128, embed_size=128,
-                      num_input_channels=512, compute_dtype="bfloat16", max_num_frames=35,
-                      max_q_len=56, vocab_size=134, num_classes=70,
-                      use_pallas_kernels=True, use_int8_trunk=True)
+    calibrate on one set of videos, then serve batch 32 and batch 1 at 35
+    frames from others, counted; the kernel path against the plain path;
+    ms/video and the stem's share."""
+    cfg = FILM_ATTN_CFG
     t0 = time.perf_counter()
     eng_big = InferenceEngine(cfg, seed=0, max_batch=32, device=dev, from_video=True)
     eng1 = InferenceEngine(cfg, seed=0, max_batch=1, device=dev, from_video=True,
@@ -631,13 +689,14 @@ def serve_film_attn(dev, video):
         f" {time.perf_counter() - t0:.1f} s")
     cpu_gen = torch.Generator().manual_seed(5)
     cal = feature_items(video, cpu_gen, 0, 32, 35)
-    b35 = feature_items(video, cpu_gen, 0, 32, 35)
+    cal1 = feature_items(video, cpu_gen, 64, 65, 35)
+    b35 = feature_items(video, cpu_gen, 32, 64, 35)
     b35[0] = (b35[0][0], 35, b35[0][2])
-    one = [(video[32], 35, feature_items(video, cpu_gen, 32, 33, 35)[0][2])]
+    one = [(video[65], 35, feature_items(video, cpu_gen, 65, 66, 35)[0][2])]
 
     t0 = time.perf_counter()
     eng_big.run_batch(cal)   # first micro-batch: the f32 calibration pass, on the stem's output
-    eng1.run_batch(one)
+    eng1.run_batch(cal1)
     torch.cuda.synchronize()
     log(f"  int8 calibration on each engine's first micro-batch: {time.perf_counter() - t0:.2f} s")
     if eng_big.needs_int8_calibration or eng1.needs_int8_calibration:
@@ -652,8 +711,7 @@ def serve_film_attn(dev, video):
     launches = read_counters()
     log(f"  {cfg.model} from video, launches on its path (batch 32 and batch 1 at 35 frames):"
         f" {launches}")
-    expect_launches(cfg.model, launches, {"vgg_block1": 2, "film_reencode": None,
-                                          "attn_tail": None, "int8_matmul_fused": None})
+    expect_launches(cfg.model, launches, dict(FILM_ATTN_KERNELS, vgg_block1=2))
     for probs, (_, its) in zip(outs, runs):
         check_probs(probs, len(its))
     worst = max(compare_paths(eng, its) for eng, its in runs)
@@ -720,11 +778,13 @@ def serve(dev):
     gen = torch.Generator(device=dev).manual_seed(4)
     feats = torch.relu(torch.randn((32 * 3 + 1, 35, 10, 13, 512), generator=gen, device=dev)
                        ).to(torch.bfloat16)
-    video = torch.randint(0, 256, (33, 35, 160, 208, 3), generator=gen, device=dev,
+    video = torch.randint(0, 256, (66, 35, 160, 208, 3), generator=gen, device=dev,
                           dtype=torch.uint8)
     total = dict.fromkeys(COUNTERS, 0)
     ms, worst = {}, 0.0
-    paths = [lambda: serve_film_attn(dev, video), lambda: serve_time_multi_hop(dev, feats)]
+    paths = [lambda: serve_film_attn_features(dev, feats),
+             lambda: serve_film_attn_video(dev, video),
+             lambda: serve_time_multi_hop(dev, feats)]
     paths += [lambda m=m, n=n: serve_zoo_model(dev, m, feats, n)
               for m, n in (("lstm", 1), ("v_only_cnn2d_lstm", 1), ("concat2d", 2), ("mac", 3))]
     for path in paths:

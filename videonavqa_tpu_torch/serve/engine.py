@@ -122,16 +122,21 @@ class InferenceEngine:
             batch[self.visual_key] = visual
         return batch
 
+    def features(self, batch, cfg=None):
+        """Video mode: f32 stem features [B, T, 10, 13, C] of a padded batch's
+        frames, the stem in ``cfg.compute_dtype`` and block 1 through its
+        kernel where ``cfg.use_pallas_kernels`` (``cfg``: the engine's by default)."""
+        cfg = cfg or self.cfg
+        return stem_features(*self.stem, normalize_video(batch["video"]),
+                             dtype=DTYPES[cfg.compute_dtype], use_kernel=cfg.use_pallas_kernels)
+
     def forward(self, batch, cfg=None, generator=None):
         """(logits, new_state) of one padded batch under ``cfg`` (the engine's
         by default). In video mode a stem model's frames first become features."""
         cfg = cfg or self.cfg
         if self.stem is not None:
-            batch = dict(batch)
-            video = normalize_video(batch.pop("video"))
-            batch["v_features"] = stem_features(*self.stem, video,
-                                                dtype=DTYPES[cfg.compute_dtype],
-                                                use_kernel=cfg.use_pallas_kernels)
+            batch = dict(batch, v_features=self.features(batch, cfg))
+            del batch["video"]
         return forward(self.spec, cfg, self.params, self.state, batch,
                        generator or self.generator)
 

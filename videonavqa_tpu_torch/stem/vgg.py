@@ -32,24 +32,22 @@ def init_vgg_partial(generator):
             for item in VGG_PARTIAL_CFG if item != "M"}
 
 
+BLOCK1 = ("conv1_1", "conv1_2")
+BLOCK2 = ("conv2_1", "conv2_2")
+
+
+def _vgg_block(params, h, names, *, dtype):
+    """conv -> relu for each conv of ``names``, then the 2x2 pool."""
+    for name in names:
+        h = torch.relu(conv2d(params[name], h, dtype=dtype))
+    return max_pool2d(h)
+
+
 def vgg_partial(params, x, *, dtype=torch.bfloat16):
     """x [N, 160, 208, 3] (pixels already /255) -> [N, 40, 52, 128]."""
-    h = x
-    for item in VGG_PARTIAL_CFG:
-        if item == "M":
-            h = max_pool2d(h)
-        else:
-            h = torch.relu(conv2d(params[item[0]], h, dtype=dtype))
-    return h
-
-
-def _vgg_block2(params, h, *, dtype):
-    """conv2_1 -> relu -> conv2_2 -> relu -> pool2."""
-    h = torch.relu(conv2d(params["conv2_1"], h, dtype=dtype))
-    h = torch.relu(conv2d(params["conv2_2"], h, dtype=dtype))
-    return max_pool2d(h)
+    return _vgg_block(params, _vgg_block(params, x, BLOCK1, dtype=dtype), BLOCK2, dtype=dtype)
 
 
 def vgg_partial_block1_kernel(params, x, *, dtype=torch.bfloat16):
     """vgg_partial with block 1 fused in one kernel launch, then block 2."""
-    return _vgg_block2(params, vgg_block1(params, x, dtype=dtype), dtype=dtype)
+    return _vgg_block(params, vgg_block1(params, x, dtype=dtype), BLOCK2, dtype=dtype)
