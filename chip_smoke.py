@@ -13,7 +13,13 @@ kernel's plain version):
              the full-width shapes of the serving path, with the tolerances
              stated below; times the kernel, the plain version and, where one
              PyTorch call computes part of the same work, that call
-             (``library_ms``, a yardstick the port never calls);
+             (``library_ms``, a yardstick the port never calls): the
+             re-encode at every cluster size it takes (2, 4, 8 blocks a
+             batch row) and against 35 chained cuDNN LSTM calls; then the
+             int8 row gate: both routes of a trunk block's 1x1 conv (the
+             fused kernel; conv2d_int8_prequant, ReLU and the 3x3 conv's
+             quantize) timed at the served folded row counts, held against
+             INT8_FUSED_MAX_ROWS;
 4. serve   — InferenceEngine at the film_attn_pt eval.sh preset (5 FiLM
              blocks x 1024 channels, hidden/attention/embed 128, 512 input
              channels, bf16, 35 frames, 56 tokens, 134 words, 70 classes)
@@ -22,9 +28,9 @@ kernel's plain version):
              [35, 160, 208, 3] through the engine's video mode (the frozen
              stem from seed 1234, VGG block 1 through its kernel; the model
              from seed 0). Each calibrates on its first micro-batch, then
-             serves other items: batch 32 (above the fused-1x1 row gate; from
-             features at frame buckets 20 and 35, from video at 35) and batch
-             1 (under it) at 35 frames, with every launch counter set to 0
+             serves other items: batch 32 (from features at frame buckets 20
+             and 35, from video at 35) and batch 1 at 35 frames, every one
+             at or under the fused-1x1 row gate, with every launch counter set to 0
              just before and read just after; then holds the kernel path
              against the plain path on the same calibrated state and times
              ms/video, and from video the stem's share of a batch.
@@ -63,9 +69,11 @@ from videonavqa_tpu_torch.kernels import int8_matmul as int8_mod
 from videonavqa_tpu_torch.kernels import lstm as lstm_mod
 from videonavqa_tpu_torch.kernels import vgg_block1 as block1_mod
 from videonavqa_tpu_torch.models import ModelConfig
+from videonavqa_tpu_torch.models.film import INT8_FUSED_MAX_ROWS
 from videonavqa_tpu_torch.ops import initializers as init
 from videonavqa_tpu_torch.ops.masking import attn_frame_mask, length_mask
-from videonavqa_tpu_torch.ops.quant import act_scale, quantize_act, quantize_weight_channelwise
+from videonavqa_tpu_torch.ops.quant import (
+    act_scale, conv2d_int8_prequant, quantize_act, quantize_weight_channelwise)
 from videonavqa_tpu_torch.serve.engine import InferenceEngine
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
@@ -135,8 +143,17 @@ def kernel_device_ms(fn, kernel, iters=10):
     return total_us / count / 1e3 if count else None
 
 
-def device_breakdown(fn, top=8):
-    """(device busy ms, wall ms, [(kernel, ms)] by device time) of one ``fn()``."""
+# Substrings of the CUDA kernel names of each kernel of the port.
+KERNEL_NAMES = {"film_reencode": ("film_reencode_kernel",), "attn_tail": ("attn_tail_kernel",),
+                "int8_matmul_fused": ("int8_matmul_kernel",),
+                "lstm": ("lstm_h128_kernel", "lstm_wide_kernel"),
+                "vgg_block1": ("vgg_block1_kernel",)}
+
+
+def device_breakdown(fn, top=8, tally=None):
+    """(device busy ms, wall ms, [(kernel, ms)] by device time) of one ``fn()``;
+    with ``tally`` ({name of KERNEL_NAMES: ms}), adds each port kernel's
+    device ms to it."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -148,6 +165,9 @@ def device_breakdown(fn, top=8):
     rows = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
+    if tally is not None:
+        for name, subs in KERNEL_NAMES.items():
+            tally[name] += sum(ms for key, ms in rows if any(sub in key for sub in subs))
     return sum(ms for _, ms in rows), wall, rows[:top]
 
 
@@ -167,13 +187,49 @@ def bound_ms(nbytes, ops, peak):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+# Batch rows of the re-encode check: the served batch 1 and 32, and an odd
+# count past one wave of clusters at every cluster size.
+REENC_BATCHES = (1, 32, 45)
+
+
+def reencode_library(cell, emb, lens, num_frames):
+    """The re-encode as PyTorch computes it, the yardstick of film_reencode
+    that the port never calls: ``num_frames`` chained torch.nn.LSTM calls
+    (cuDNN on the card) over the question packed by its lengths, each started
+    from the previous call's (h_n, c_n). A packed sequence stops each row at
+    its length, so h_n is the frozen carry. emb [B, Tq, E] -> fn() -> [F, B, H]."""
+    from torch.nn.utils.rnn import pack_padded_sequence
+
+    E, H = emb.shape[-1], cell["w_hh"].shape[1]
+    lib = torch.nn.LSTM(E, H, batch_first=True).to(emb.device)
+    with torch.no_grad():
+        for name, key in (("weight_ih_l0", "w_ih"), ("weight_hh_l0", "w_hh"),
+                          ("bias_ih_l0", "b_ih"), ("bias_hh_l0", "b_hh")):
+            getattr(lib, name).copy_(cell[key])
+    packed = pack_padded_sequence(emb, lens.cpu(), batch_first=True, enforce_sorted=False)
+
+    def run():
+        state, finals = None, []
+        with torch.no_grad():
+            for _ in range(num_frames):
+                _, state = lib(packed, state)
+                finals.append(state[0][0])
+        return torch.stack(finals)
+    return run
+
+
 def check_film_reencode(dev):
-    """B in {1, 32}, Tq 56, H 128, F 35, ragged q_len including 1 and 56."""
+    """B in REENC_BATCHES, Tq 56, H 128, F 35, ragged q_len including 1 and
+    56, at every cluster size the kernel takes; the time at each, and
+    ``library_ms``: reencode_library on cuDNN in f32 (TF32 off), held to the
+    plain version with the same tolerance."""
+    torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator().manual_seed(1)
     H, E, Tq, F = 128, 128, 56, 35
     cell = init.reference_lstm(gen, E, H)
+    cell_dev = {k: v.to(dev) for k, v in cell.items()}
     rows = {}
-    for B in (1, 32):
+    for B in REENC_BATCHES:
         lens = torch.randint(1, Tq + 1, (B,), generator=gen, dtype=torch.int32)
         lens[0] = Tq if B == 1 else 1
         if B > 1:
@@ -181,24 +237,39 @@ def check_film_reencode(dev):
         emb = torch.randn((B, Tq, E), generator=gen)
         xw = (emb @ cell["w_ih"].t() + cell["b_ih"]).transpose(0, 1).contiguous()
         args = [t.to(dev) for t in (xw, cell["w_hh"], cell["b_hh"], lens)] + [F]
-        got = reenc_mod.film_reencode(*args)
         want = reenc_mod.film_reencode_plain(*args)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        log(f"  film_reencode B={B}: max_abs_err {err:.3e} (atol {RECURRENCE_ATOL})")
-        if not err <= RECURRENCE_ATOL:
-            raise AssertionError(f"film_reencode B={B} disagrees: {err}")
+        library = reencode_library(cell_dev, emb.to(dev), lens, F)
+        lib_err = (library() - want).abs().max().item()
+        log(f"  film_reencode B={B}: cuDNN yardstick vs plain max_abs_err {lib_err:.3e}"
+            f" (atol {RECURRENCE_ATOL})")
+        if not lib_err <= RECURRENCE_ATOL:
+            raise AssertionError(f"film_reencode B={B}: the cuDNN yardstick disagrees: {lib_err}")
+        errs, by_cluster = [], {}
+        for cs in reenc_mod.CLUSTER_SIZES:
+            run = lambda cs=cs: reenc_mod.film_reencode(*args, cluster=cs)
+            got = run()
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            log(f"  film_reencode B={B} cluster {cs}: max_abs_err {err:.3e}"
+                f" (atol {RECURRENCE_ATOL})")
+            if not err <= RECURRENCE_ATOL:
+                raise AssertionError(f"film_reencode B={B} cluster {cs} disagrees: {err}")
+            errs.append(err)
+            by_cluster[cs] = kernel_device_ms(run, "film_reencode_kernel") or time_ms(run, 10)
         steps = F * int(lens.sum())
         nbytes = xw.numel() * 4 + cell["w_hh"].numel() * 4 + 4 * H * 4 + B * 4 + F * B * H * 4
         ops = steps * (2 * 4 * H * H + 12 * H)
         b_ms, b_by = bound_ms(nbytes, ops, F32_FLOPS)
-        rows[B] = dict(
-            max_abs_err=err, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        rows[B] = row = dict(
+            max_abs_err=max(errs), bound_ms=b_ms, bound_by=b_by, by_cluster=by_cluster,
+            library_ms=time_ms(library, 3, warmup=1),
             **timings(lambda: reenc_mod.film_reencode(*args),
                       lambda: reenc_mod.film_reencode_plain(*args), "film_reencode_kernel",
                       10, 2))
-        log(f"  film_reencode B={B}: {rows[B]['ms']:.4f} ms (wrapper {rows[B]['wrapper_ms']:.4f}),"
-            f" plain {rows[B]['plain_ms']:.3f} ms,"
+        log(f"  film_reencode B={B}: {row['ms']:.4f} ms at cluster {reenc_mod.CLUSTER}"
+            f" (wrapper {row['wrapper_ms']:.4f}); by cluster size "
+            + ", ".join(f"{cs}: {t:.4f}" for cs, t in by_cluster.items())
+            + f"; plain {row['plain_ms']:.3f} ms, cuDNN yardstick {row['library_ms']:.4f} ms,"
             f" bound {b_ms:.5f} ms by {b_by}; the serial chain is {F} x max q_len ="
             f" {F * int(lens.max())} dependent steps")
     return rows
@@ -381,6 +452,75 @@ def check_int8_matmul(dev):
                     f" torch._int_mm alone {r['library_ms']:.4f} ms, bound {b_ms:.5f} ms by {b_by}")
             rows.setdefault("errs", []).append(err)
     return rows
+
+
+# Folded rows (B x T x 10 x 13) at which the trunk's 1x1 conv runs on the
+# served paths: batch 1 T35, time_multi_hop batch 16 T35, batch 32 T20 and T35.
+GATE_ROWS = (4550, 72800, 83200, 91000, 145600)
+
+
+def sweep_int8_gate(dev):
+    """The two routes of one trunk block's 1x1 conv (1024 -> 1024, bf16) at
+    each of GATE_ROWS, timed in turns (plain, fused, fused, plain) by CUDA
+    events over whole calls, glue included, as the trunk calls them:
+
+    - fused: ``matmul_int8_fused`` with ReLU and ``next_absmax`` (y and the
+      int8 input of the 3x3 conv in one kernel);
+    - plain: ``conv2d_int8_prequant`` (quantize, ``torch._int_mm``,
+      dequant), ReLU, and the quantize the 3x3 conv then does itself.
+
+    Holds the two against each other (y within one bf16 ulp; yq within one
+    int8 step, since the kernel requantizes the f32 y and the plain route the
+    stored bf16 one). -> {rows: (fused ms, plain ms, kernel device ms)}."""
+    cpu_gen = torch.Generator().manual_seed(12)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    C = 1024
+    wq, w_scale = (t.to(dev) for t in quantize_weight_channelwise(
+        init.reference_conv2d(cpu_gen, 1, 1, C, C)["weight"]))
+    wq2 = wq[:, :, 0, 0].contiguous()
+    bias = (0.1 * torch.randn(C, generator=cpu_gen)).to(dev)
+    out = {}
+    for rows in GATE_ROWS:
+        x = torch.relu(torch.randn((rows // 130, 10, 13, C), generator=gen, device=dev)
+                       ).to(torch.bfloat16)
+        a1 = 1.25 * x.float().abs().amax()
+
+        def plain_res():
+            return torch.relu(conv2d_int8_prequant(wq, w_scale, bias, x, a1,
+                                                   out_dtype=torch.bfloat16))
+        a3 = 1.25 * plain_res().float().abs().amax()
+
+        def plain():
+            res = plain_res()
+            return res, quantize_act(res, act_scale(a3))
+
+        def fused():
+            return int8_mod.matmul_int8_fused(x, wq2, w_scale, bias, a1, relu=True,
+                                              next_absmax=a3, out_dtype=torch.bfloat16)
+
+        (y, yq), (yp, yqp) = fused(), plain()
+        torch.cuda.synchronize()
+        off_ulp = int(((y.float() - yp.float()).abs() > _bf16_ulp(yp.float())).sum())
+        step = (yq.int() - yqp.int()).abs()
+        log(f"  int8 gate sweep rows={rows}: fused vs plain route: y elements beyond 1 bf16 ulp"
+            f" {off_ulp}, yq max step {int(step.max())}, share differing"
+            f" {float((step > 0).float().mean()):.2e}")
+        if off_ulp or int(step.max()) > YQ_MAX_STEP:
+            raise AssertionError(f"int8 gate sweep rows={rows}: the routes disagree")
+        del y, yq, yp, yqp, step
+        iters = max(5, 200 * 4550 // rows)
+        p1, f1, f2, p2 = (time_ms(fn, iters) for fn in (plain, fused, fused, plain))
+        dev_ms = kernel_device_ms(fused, "int8_matmul_kernel", iters=5) or float("nan")
+        out[rows] = ((f1 + f2) / 2, (p1 + p2) / 2, dev_ms)
+        b_ms, _ = bound_ms(rows * C * 5 + C * C + 2 * C * 4 + 8, 2 * rows * C * C, INT8_OPS)
+        log(f"  int8 gate sweep rows={rows}: fused route {f1:.4f} / {f2:.4f} ms (the kernel"
+            f" alone {dev_ms:.4f}, bound {b_ms:.5f}), plain route {p1:.4f} / {p2:.4f} ms")
+    gate = INT8_FUSED_MAX_ROWS
+    agree = all((f <= p) == (rows <= gate) for rows, (f, p, _) in out.items())
+    log(f"  int8 gate: INT8_FUSED_MAX_ROWS = {gate}; the fused route is faster at"
+        f" {[r for r, (f, p, _) in out.items() if f <= p]} rows in this run; the gate"
+        f" {'agrees' if agree else 'DOES NOT agree'} with this run's sweep")
+    return out
 
 
 # (M frames, dtype) of the block-1 check: batch 32 x 35 frames (the served
@@ -569,11 +709,11 @@ def per_video_ms(eng, its, iters, use_kernels):
         eng.cfg = saved
 
 
-def time_paths(label, eng, its, iters, top=8):
+def time_paths(label, eng, its, iters, tally, top=8):
     """(kernel path, plain path) ms/video of ``its``, and the device breakdown
-    of one kernel-path batch."""
+    of one kernel-path batch, whose port-kernel device ms go into ``tally``."""
     ms = (per_video_ms(eng, its, iters, True), per_video_ms(eng, its, iters, False))
-    busy, wall, rows = device_breakdown(lambda: eng.run_batch(its), top)
+    busy, wall, rows = device_breakdown(lambda: eng.run_batch(its), top, tally)
     log(f"  {label}: kernel path {ms[0]:.4f} ms/video, plain path"
         f" {ms[1]:.4f} ms/video; one batch: device busy {busy:.3f} ms of"
         f" {wall:.3f} ms wall (idle share {max(0.0, 1 - busy / wall):.3f})")
@@ -591,7 +731,7 @@ def feature_items(feats, cpu_gen, lo, hi, v_max):
     return out
 
 
-def serve_stem_model(dev, cfg, feats, big, seed):
+def serve_stem_model(dev, cfg, feats, big, seed, tally):
     """One int8-trunk model over cached features: calibrate, then batch ``big``
     at frame buckets 20 and 35 and batch 1 at 35 frames, counted; the kernel
     path against the plain path; ms/video. -> (launches, ms, worst |dprob|)."""
@@ -627,8 +767,9 @@ def serve_stem_model(dev, cfg, feats, big, seed):
         check_probs(probs, len(its))
     worst = max(compare_paths(eng, its) for eng, its in runs)
     ms = {f"{cfg.model} batch {big} T35": time_paths(f"{cfg.model} batch {big} T35",
-                                                     eng_big, b35, 3),
-          f"{cfg.model} batch 1 T35": time_paths(f"{cfg.model} batch 1 T35", eng1, one, 10)}
+                                                     eng_big, b35, 3, tally),
+          f"{cfg.model} batch 1 T35": time_paths(f"{cfg.model} batch 1 T35", eng1, one, 10,
+                                                 tally)}
     return launches, ms, worst
 
 
@@ -668,14 +809,22 @@ FILM_ATTN_CFG = ModelConfig(model="film_attn_pt", num_res_blocks=5, num_res_bloc
 FILM_ATTN_KERNELS = {"film_reencode": None, "attn_tail": None, "int8_matmul_fused": None}
 
 
-def serve_film_attn_features(dev, feats):
+def fused_1x1_launches(blocks, *rows):
+    """Launches of the fused int8 1x1 kernel over forwards of these folded row
+    counts: one per trunk block where the count is at or under the gate."""
+    return blocks * sum(r <= INT8_FUSED_MAX_ROWS for r in rows)
+
+
+def serve_film_attn_features(dev, feats, tally):
     """The eval.sh preset over cached features (serve_stem_model)."""
-    launches, ms, worst = serve_stem_model(dev, FILM_ATTN_CFG, feats, 32, 5)
-    expect_launches(FILM_ATTN_CFG.model, launches, FILM_ATTN_KERNELS)
+    launches, ms, worst = serve_stem_model(dev, FILM_ATTN_CFG, feats, 32, 5, tally)
+    expect_launches(FILM_ATTN_CFG.model, launches, dict(
+        FILM_ATTN_KERNELS, int8_matmul_fused=fused_1x1_launches(5, 32 * 20 * 130,
+                                                                 32 * 35 * 130, 35 * 130)))
     return launches, ms, worst
 
 
-def serve_film_attn_video(dev, video):
+def serve_film_attn_video(dev, video, tally):
     """The eval.sh preset from raw uint8 video through the engine's video mode:
     calibrate on one set of videos, then serve batch 32 and batch 1 at 35
     frames from others, counted; the kernel path against the plain path;
@@ -711,34 +860,38 @@ def serve_film_attn_video(dev, video):
     launches = read_counters()
     log(f"  {cfg.model} from video, launches on its path (batch 32 and batch 1 at 35 frames):"
         f" {launches}")
-    expect_launches(cfg.model, launches, dict(FILM_ATTN_KERNELS, vgg_block1=2))
+    expect_launches(cfg.model, launches, dict(
+        FILM_ATTN_KERNELS, vgg_block1=2,
+        int8_matmul_fused=fused_1x1_launches(5, 32 * 35 * 130, 35 * 130)))
     for probs, (_, its) in zip(outs, runs):
         check_probs(probs, len(its))
     worst = max(compare_paths(eng, its) for eng, its in runs)
     ms = {}
     for label, eng, its, iters in ((f"{cfg.model} video batch 32 T35", eng_big, b35, 3),
                                    (f"{cfg.model} video batch 1 T35", eng1, one, 10)):
-        ms[label] = time_paths(label, eng, its, iters)
+        ms[label] = time_paths(label, eng, its, iters, tally)
         stem_share(label, eng, its)
     return launches, ms, worst
 
 
-def serve_time_multi_hop(dev, feats):
+def serve_time_multi_hop(dev, feats, tally):
     """eval.sh preset: 3 FiLM blocks x 1024 channels, 64 tail channels, batch 16.
     The LSTM kernel launches once per served frame (20 + 35 + 35); the fused
-    int8 1x1 kernel once per block at batch 1 only (4,550 folded rows; batch
-    16 is over the 9,100-row gate at both buckets)."""
+    int8 1x1 kernel once per block in each forward at or under the row gate
+    (batch 16: 41,600 and 72,800 folded rows; batch 1: 4,550)."""
     cfg = ModelConfig(model="time_multi_hop", num_res_blocks=3, num_res_block_channels=1024,
                       num_tail_channels=64, hidden_size=128, embed_size=128,
                       num_input_channels=512, compute_dtype="bfloat16", max_num_frames=35,
                       max_q_len=56, vocab_size=134, num_classes=70,
                       use_pallas_kernels=True, use_int8_trunk=True)
-    launches, ms, worst = serve_stem_model(dev, cfg, feats, 16, 7)
-    expect_launches(cfg.model, launches, {"lstm": 20 + 35 + 35, "int8_matmul_fused": 3})
+    launches, ms, worst = serve_stem_model(dev, cfg, feats, 16, 7, tally)
+    expect_launches(cfg.model, launches, {
+        "lstm": 20 + 35 + 35,
+        "int8_matmul_fused": fused_1x1_launches(3, 16 * 20 * 130, 16 * 35 * 130, 35 * 130)})
     return launches, ms, worst
 
 
-def serve_zoo_model(dev, model, feats, lstm_per_forward):
+def serve_zoo_model(dev, model, feats, lstm_per_forward, tally):
     """One of lstm, v_only_cnn2d_lstm, concat2d, mac at the ModelConfig
     defaults: one bucket-35 batch of 32 and one batch-1 call, counted; the
     kernel path against the plain path; ms/video."""
@@ -768,24 +921,26 @@ def serve_zoo_model(dev, model, feats, lstm_per_forward):
     for probs, (_, b) in zip(outs, runs):
         check_probs(probs, len(b))
     worst = max(compare_paths(eng, b) for eng, b in runs)
-    ms = {f"{model} batch 32": time_paths(f"{model} batch 32", eng32, its[:32], 2, top=5),
-          f"{model} batch 1": time_paths(f"{model} batch 1", eng1, its[32:], 5, top=5)}
+    ms = {f"{model} batch 32": time_paths(f"{model} batch 32", eng32, its[:32], 2, tally, top=5),
+          f"{model} batch 1": time_paths(f"{model} batch 1", eng1, its[32:], 5, tally, top=5)}
     return launches, ms, worst
 
 
 def serve(dev):
-    """Every served path in turn -> (launches summed over the paths, ms, worst |dprob|)."""
+    """Every served path in turn -> (launches summed over the paths, ms, worst
+    |dprob|, each port kernel's device ms summed over the profiled batches:
+    one batch of each timed configuration)."""
     gen = torch.Generator(device=dev).manual_seed(4)
     feats = torch.relu(torch.randn((32 * 3 + 1, 35, 10, 13, 512), generator=gen, device=dev)
                        ).to(torch.bfloat16)
     video = torch.randint(0, 256, (66, 35, 160, 208, 3), generator=gen, device=dev,
                           dtype=torch.uint8)
     total = dict.fromkeys(COUNTERS, 0)
-    ms, worst = {}, 0.0
-    paths = [lambda: serve_film_attn_features(dev, feats),
-             lambda: serve_film_attn_video(dev, video),
-             lambda: serve_time_multi_hop(dev, feats)]
-    paths += [lambda m=m, n=n: serve_zoo_model(dev, m, feats, n)
+    ms, worst, tally = {}, 0.0, dict.fromkeys(KERNEL_NAMES, 0.0)
+    paths = [lambda: serve_film_attn_features(dev, feats, tally),
+             lambda: serve_film_attn_video(dev, video, tally),
+             lambda: serve_time_multi_hop(dev, feats, tally)]
+    paths += [lambda m=m, n=n: serve_zoo_model(dev, m, feats, n, tally)
               for m, n in (("lstm", 1), ("v_only_cnn2d_lstm", 1), ("concat2d", 2), ("mac", 3))]
     for path in paths:
         launches, path_ms, path_worst = path()
@@ -794,7 +949,7 @@ def serve(dev):
         ms.update(path_ms)
         worst = max(worst, path_worst)
         torch.cuda.empty_cache()
-    return total, ms, worst
+    return total, ms, worst, tally
 
 
 def main():
@@ -812,7 +967,7 @@ def main():
     log(f"  built {', '.join(_build.SOURCES)} in {time.perf_counter() - t0:.1f} s")
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "wgmma", "arning")):
                 log(f"  ptxas {name}: {line.strip()}")
 
     log("phase card")
@@ -825,11 +980,19 @@ def main():
     reenc = check_film_reencode(dev)
     attn = check_attn_tail(dev)
     int8 = check_int8_matmul(dev)
+    gate = sweep_int8_gate(dev)
     lstm = check_lstm(dev)
     block1 = check_vgg_block1(dev)
 
     log("phase serve")
-    launches, ms, worst = serve(dev)
+    launches, ms, worst, served_ms = serve(dev)
+    log("  port kernels' device ms over the serve phase's profiled batches (one batch of each"
+        " timed configuration): " + ", ".join(f"{k} {v:.4f}" for k, v in served_ms.items()))
+    log(f"  film_reencode on {card}, ms by cluster size (B: {{size: ms}}): "
+        + ", ".join(f"{b}: {r['by_cluster']}" for b, r in reenc.items())
+        + f"; cuDNN yardstick ms: " + ", ".join(f"{b}: {r['library_ms']:.4f}" for b, r in reenc.items()))
+    log(f"  int8 gate sweep on {card} (rows: fused route ms, plain route ms, kernel ms): "
+        + ", ".join(f"{r}: {f:.4f}, {p:.4f}, {d:.4f}" for r, (f, p, d) in gate.items()))
     log(f"  serving on {card}, kernel path (plain path) ms/video: "
         + ", ".join(f"{k} {a:.4f} ({b:.4f})" for k, (a, b) in ms.items())
         + f"; worst kernel-vs-plain |dprob| {worst:.3e}")

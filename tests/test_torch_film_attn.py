@@ -172,7 +172,13 @@ def test_int8_fused_row_gate(monkeypatch):
 
 
 def test_int8_fused_row_gate_value():
-    assert film_mod.INT8_FUSED_MAX_ROWS == 9100
+    """The port's gate comes from its own measurement on the H100
+    (chip_smoke.py sweep_int8_gate): every served batch, up to 32 x 35
+    frames x 10 x 13 folded rows, takes the fused kernel. The JAX package
+    keeps the 9,100 it measured on a TPU."""
+    assert film_mod.INT8_FUSED_MAX_ROWS == 32 * 35 * 130
+    jax_film = importlib.import_module("videonavqa_tpu.models.film")
+    assert jax_film.INT8_FUSED_MAX_ROWS == 9100
 
 
 def test_eval_step_widens_fp8_features():

@@ -7,6 +7,7 @@ another order); for the fused int8 matmul the int8 output is bitwise equal
 and y agrees at rtol 1e-5 / atol 1e-6, as the JAX package's own test.
 """
 
+import chip_smoke
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +28,7 @@ from videonavqa_tpu_torch.kernels import film_reencode as reenc_mod
 from videonavqa_tpu_torch.kernels import int8_matmul as int8_mod
 from videonavqa_tpu_torch.kernels import lstm as lstm_mod
 from videonavqa_tpu_torch.kernels import vgg_block1 as block1_mod
+from videonavqa_tpu_torch.ops import initializers as tinit
 from videonavqa_tpu_torch.ops import lstm as ops_lstm
 from videonavqa_tpu_torch.ops.linear import linear
 
@@ -56,6 +58,28 @@ def test_film_reencode_matches_pallas(num_frames):
     assert reenc_mod.launches == before  # the CPU runs the plain version
     np.testing.assert_allclose(got.transpose(0, 1).numpy(), np.asarray(want),
                                atol=RECURRENCE_ATOL)
+
+
+@pytest.mark.parametrize("B,num_frames", [(1, 1), (1, 5), (4, 3), (7, 2)])
+def test_film_reencode_cudnn_yardstick_computes_the_plain_function(B, num_frames):
+    """chip_smoke.py times the re-encode kernel against num_frames chained
+    torch.nn.LSTM calls (cuDNN on the card) over the question packed by its
+    lengths, each from the previous call's (h_n, c_n). On the CPU that
+    yardstick equals film_reencode_plain: it times the same function."""
+    E, H, Tq = 8, 8, 9
+    cell = tinit.reference_lstm(torch.Generator().manual_seed(B), E, H)
+    r = np.random.default_rng(20 + B)
+    lens = torch.from_numpy(r.integers(1, Tq + 1, B).astype(np.int32))
+    lens[0] = Tq
+    if B > 1:
+        lens[-1] = 1
+    emb = torch.from_numpy(r.standard_normal((B, Tq, E)).astype(np.float32))
+    xw = linear({"weight": cell["w_ih"], "bias": cell["b_ih"]}, emb)
+    want = reenc_mod.film_reencode_plain(xw.transpose(0, 1).contiguous(), cell["w_hh"],
+                                         cell["b_hh"], lens, num_frames)
+    got = chip_smoke.reencode_library(cell, emb, lens, num_frames)()
+    assert got.shape == (num_frames, B, H)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=RECURRENCE_ATOL)
 
 
 @pytest.mark.parametrize("T", [7, 4])  # 4: a bucket-trimmed frame axis, n_phantom 3
@@ -242,3 +266,27 @@ def test_vgg_block1_refuses_other_dtypes_and_non_cuda_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         block1_mod.vgg_block1(_block1_params("meta"),
                               torch.empty((2, 160, 208, 3), device="meta"))
+
+
+def test_int8_matmul_kernel_refuses_a_reduction_deeper_than_its_panel():
+    """The kernel keeps two int8 row panels [64, K] in shared memory: K over
+    1024 is refused off the CPU, not handed to the plain version."""
+    m = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device="meta")
+    with pytest.raises(ValueError, match="K <= 1024"):
+        int8_mod.int8_matmul_2d(m(4, 2048, dtype=torch.bfloat16), m(128, 2048, dtype=torch.int8),
+                                m(128), m(128), m())
+
+
+@pytest.mark.parametrize("cluster", [1, 3, 16])
+def test_film_reencode_kernel_refuses_other_cluster_sizes(cluster):
+    m = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device="meta")
+    with pytest.raises(ValueError, match="cluster"):
+        reenc_mod.film_reencode(m(5, 3, 512), m(512, 128), m(512), m(3, dtype=torch.int32), 2,
+                                cluster=cluster)
+
+
+def test_film_reencode_kernel_refuses_more_batch_rows_than_its_grid():
+    m = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device="meta")
+    with pytest.raises(ValueError, match="batch rows"):
+        reenc_mod.film_reencode(m(5, 65536, 512), m(512, 128), m(512),
+                                m(65536, dtype=torch.int32), 2)

@@ -4,8 +4,8 @@ Replaces ``videonavqa_tpu/kernels/film_reencode_pallas.py`` (film_reencode_palla
 The FiLM generator re-encodes the question once per frame with a carried
 (h, c): F chained masked LSTM passes (35 x 56 = 1,960 steps at full width),
 h0 = c0 = 0 only before frame 0, each pass's last valid h collected. The
-serial chain, not bytes, bounds it on an H100; the source note in the .cu
-file says how the design keeps each step on chip.
+serial chain, not bytes, bounds it on an H100; the kernel spreads W_hh over
+a thread-block cluster per batch row (the source note in the .cu file).
 """
 
 from __future__ import annotations
@@ -19,7 +19,13 @@ from videonavqa_tpu_torch.ops.lstm import last_valid, lstm
 
 launches = 0
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# Blocks in the cluster that runs one batch row; the kernel takes 2, 4 or 8.
+# 8 was the fastest on an NVIDIA H100 at batch 1 and 45 and level with 4 at
+# batch 32 (chip_smoke.py check_film_reencode times all three).
+CLUSTER_SIZES = (2, 4, 8)
+CLUSTER = 8
+
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def film_reencode_plain(xw, w_hh, b_hh, lens, num_frames):
@@ -34,27 +40,33 @@ def film_reencode_plain(xw, w_hh, b_hh, lens, num_frames):
     return torch.stack(finals)
 
 
-def film_reencode(xw, w_hh, b_hh, lens, num_frames):
+def film_reencode(xw, w_hh, b_hh, lens, num_frames, *, cluster=CLUSTER):
     """xw [Tq, B, 4H] f32, w_hh [4H, H], b_hh [4H] f32,
     lens [B] int32 -> finals [F, B, H] f32.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel, with
+    ``cluster`` blocks per batch row."""
     global launches
     if xw.device.type == "cpu":
         return film_reencode_plain(xw, w_hh, b_hh, lens, num_frames)
     Tq, B, G = xw.shape
     H = G // 4
     dev = xw.device
+    if H != 128:
+        raise ValueError(f"film_reencode kernel needs hidden size 128, got {H}")
+    if not 1 <= B <= 65535:
+        raise ValueError(f"film_reencode kernel takes 1 to 65,535 batch rows, got {B}")
+    if cluster not in CLUSTER_SIZES:
+        raise ValueError(f"film_reencode kernel takes a cluster of {CLUSTER_SIZES} blocks,"
+                         f" got {cluster}")
     _build.require(xw, "xw", torch.float32, device=dev)
     _build.require(w_hh, "w_hh", torch.float32, (G, H), dev)
     _build.require(b_hh, "b_hh", torch.float32, (G,), dev)
     _build.require(lens, "lens", torch.int32, (B,), dev)
-    if H != 128:
-        raise ValueError(f"film_reencode kernel needs hidden size 128, got {H}")
     finals = torch.empty((num_frames, B, H), dtype=torch.float32, device=dev)
     fn = _build.function("film_reencode", "film_reencode", _ARGTYPES)
     err = fn(xw.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), lens.data_ptr(),
-             finals.data_ptr(), Tq, B, int(num_frames), H, _build.stream_ptr(dev))
+             finals.data_ptr(), Tq, B, int(num_frames), H, cluster, _build.stream_ptr(dev))
     _build.check(err, "film_reencode launch")
     launches += 1
     return finals

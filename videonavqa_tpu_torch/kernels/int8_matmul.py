@@ -6,7 +6,10 @@ int8 x int8 -> int32 product against the pre-quantized weight, dequant and
 bias in f32, optional ReLU, a store at the compute dtype and, optionally, an
 int8 requantization of the f32 result with the NEXT conv's calibrated scale.
 Bytes bound it on an H100; fusing keeps the int8 copy of x and the int32
-accumulator out of device memory (source note in the .cu file).
+accumulator out of device memory. The kernel is persistent (one block per SM
+over 64 x 128 items), quantizes each row panel once into shared memory, and
+runs the product on wgmma with the weight tiles brought in by TMA (source
+note in the .cu file).
 """
 
 from __future__ import annotations
@@ -19,6 +22,10 @@ from videonavqa_tpu_torch.kernels import _build
 from videonavqa_tpu_torch.ops.quant import act_scale, quantize_act
 
 launches = 0
+
+# The deepest reduction the kernel takes: two int8 row panels [64, K] sit in
+# shared memory beside the weight ring.
+MAX_K = 1024
 
 _ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
              + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
@@ -44,9 +51,9 @@ def _launch(x2, wq, comb, bias, sx, nx, *, relu, out_dtype):
         raise ValueError(f"x: expected bfloat16 or float32, got {x2.dtype}")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"out_dtype: expected bfloat16 or float32, got {out_dtype}")
-    if N % 128 or K % 128 or K > 4096:
-        raise ValueError(f"int8_matmul kernel needs N % 128 == 0, K % 128 == 0 and K <= 4096,"
-                         f" got N={N}, K={K}")
+    if M < 1 or N < 128 or N % 128 or K < 128 or K % 128 or K > MAX_K:
+        raise ValueError(f"int8_matmul kernel needs M >= 1, N % 128 == 0, K % 128 == 0 and"
+                         f" K <= {MAX_K}, got M={M}, N={N}, K={K}")
     _build.require(x2, "x", x2.dtype, (M, K), dev)
     _build.require(wq, "wq", torch.int8, (N, K), dev)
     _build.require(comb, "comb", torch.float32, (N,), dev)

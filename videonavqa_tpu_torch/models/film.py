@@ -33,10 +33,14 @@ from videonavqa_tpu_torch.utils import constants as C
 from videonavqa_tpu_torch.utils.device import tree_to
 
 # Folded-row-count ceiling for the fused int8 1x1 kernel (rows = B*T*10*13).
-# Inherited from the JAX package, where it was measured on another chip; not
-# yet measured on the H100. With it, batch 32 x 35 frames (145,600 rows)
-# skips the fused kernel and batch 1 x 35 frames (4,550 rows) takes it.
-INT8_FUSED_MAX_ROWS = 9100
+# Measured on an NVIDIA H100 80GB HBM3 at a 700 W power limit by
+# chip_smoke.py's sweep_int8_gate: the fused route (one kernel for the 1x1
+# conv, its ReLU and the 3x3 conv's int8 input) beat the plain route
+# (conv2d_int8_prequant, ReLU, the 3x3 conv's own quantize) at every served
+# count, from 4,550 rows (batch 1 x 35 frames) to 145,600 (batch 32 x 35), so
+# every served batch takes the kernel. Nothing above 145,600 rows is measured.
+# (The JAX package's 9,100 was measured on a TPU v5e.)
+INT8_FUSED_MAX_ROWS = 145600
 
 def init_film_trunk(gen, cfg):
     """conv_init + bn_init + N x (conv3x3, conv1x1)."""
