@@ -14,12 +14,11 @@ kernel's plain version):
              stated below; times the kernel, the plain version and, where one
              PyTorch call computes part of the same work, that call
              (``library_ms``, a yardstick the port never calls): the
-             re-encode at every cluster size it takes (2, 4, 8 blocks a
-             batch row) and against 35 chained cuDNN LSTM calls; then the
+             re-encode also against 35 chained cuDNN LSTM calls; then the
              int8 row gate: both routes of a trunk block's 1x1 conv (the
              fused kernel; conv2d_int8_prequant, ReLU and the 3x3 conv's
-             quantize) timed at the served folded row counts, held against
-             INT8_FUSED_MAX_ROWS;
+             quantize) timed at the served folded row counts and above
+             them, held against INT8_FUSED_MAX_ROWS;
 4. serve   — InferenceEngine at the film_attn_pt eval.sh preset (5 FiLM
              blocks x 1024 channels, hidden/attention/embed 128, 512 input
              channels, bf16, 35 frames, 56 tokens, 134 words, 70 classes)
@@ -126,7 +125,7 @@ def time_ms(fn, iters, warmup=2):
 
 def kernel_device_ms(fn, kernel, iters=10):
     """Device time of one launch of the CUDA kernel named ``kernel`` inside
-    ``fn()``, read from torch.profiler (CUPTI); None where the profiler sees
+    ``fn()``, read from torch.profiler (CUPTI); raises where the profiler sees
     no such kernel."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -140,7 +139,9 @@ def kernel_device_ms(fn, kernel, iters=10):
             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
     total_us = sum(e.self_device_time_total for e in hits)
     count = sum(e.count for e in hits)
-    return total_us / count / 1e3 if count else None
+    if not count:
+        raise AssertionError(f"the profiler saw no {kernel} launch")
+    return total_us / count / 1e3
 
 
 # Substrings of the CUDA kernel names of each kernel of the port.
@@ -172,12 +173,9 @@ def device_breakdown(fn, top=8, tally=None):
 
 
 def timings(kernel_fn, plain_fn, kernel, iters, plain_iters):
-    """ms: the kernel's own device time per launch (profiler; the wrapper's
-    event-timed call where the profiler sees no kernel); wrapper_ms: one
+    """ms: the kernel's own device time per launch (profiler); wrapper_ms: one
     wrapper call, glue included, by CUDA events; plain_ms: the plain version."""
-    wrapper = time_ms(kernel_fn, iters)
-    dev = kernel_device_ms(kernel_fn, kernel)
-    return dict(ms=dev if dev is not None else wrapper, wrapper_ms=wrapper,
+    return dict(wrapper_ms=time_ms(kernel_fn, iters), ms=kernel_device_ms(kernel_fn, kernel),
                 plain_ms=time_ms(plain_fn, plain_iters, warmup=1))
 
 
@@ -188,7 +186,7 @@ def bound_ms(nbytes, ops, peak):
 
 
 # Batch rows of the re-encode check: the served batch 1 and 32, and an odd
-# count past one wave of clusters at every cluster size.
+# count past one wave of 8-block clusters (16 clusters fill the 132 SMs).
 REENC_BATCHES = (1, 32, 45)
 
 
@@ -220,9 +218,8 @@ def reencode_library(cell, emb, lens, num_frames):
 
 def check_film_reencode(dev):
     """B in REENC_BATCHES, Tq 56, H 128, F 35, ragged q_len including 1 and
-    56, at every cluster size the kernel takes; the time at each, and
-    ``library_ms``: reencode_library on cuDNN in f32 (TF32 off), held to the
-    plain version with the same tolerance."""
+    56, and ``library_ms``: reencode_library on cuDNN in f32 (TF32 off), held
+    to the plain version with the same tolerance."""
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator().manual_seed(1)
     H, E, Tq, F = 128, 128, 56, 35
@@ -244,32 +241,24 @@ def check_film_reencode(dev):
             f" (atol {RECURRENCE_ATOL})")
         if not lib_err <= RECURRENCE_ATOL:
             raise AssertionError(f"film_reencode B={B}: the cuDNN yardstick disagrees: {lib_err}")
-        errs, by_cluster = [], {}
-        for cs in reenc_mod.CLUSTER_SIZES:
-            run = lambda cs=cs: reenc_mod.film_reencode(*args, cluster=cs)
-            got = run()
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            log(f"  film_reencode B={B} cluster {cs}: max_abs_err {err:.3e}"
-                f" (atol {RECURRENCE_ATOL})")
-            if not err <= RECURRENCE_ATOL:
-                raise AssertionError(f"film_reencode B={B} cluster {cs} disagrees: {err}")
-            errs.append(err)
-            by_cluster[cs] = kernel_device_ms(run, "film_reencode_kernel") or time_ms(run, 10)
+        got = reenc_mod.film_reencode(*args)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        log(f"  film_reencode B={B}: max_abs_err {err:.3e} (atol {RECURRENCE_ATOL})")
+        if not err <= RECURRENCE_ATOL:
+            raise AssertionError(f"film_reencode B={B} disagrees: {err}")
         steps = F * int(lens.sum())
         nbytes = xw.numel() * 4 + cell["w_hh"].numel() * 4 + 4 * H * 4 + B * 4 + F * B * H * 4
         ops = steps * (2 * 4 * H * H + 12 * H)
         b_ms, b_by = bound_ms(nbytes, ops, F32_FLOPS)
         rows[B] = row = dict(
-            max_abs_err=max(errs), bound_ms=b_ms, bound_by=b_by, by_cluster=by_cluster,
-            library_ms=time_ms(library, 3, warmup=1),
+            max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(library, 10),
             **timings(lambda: reenc_mod.film_reencode(*args),
                       lambda: reenc_mod.film_reencode_plain(*args), "film_reencode_kernel",
                       10, 2))
-        log(f"  film_reencode B={B}: {row['ms']:.4f} ms at cluster {reenc_mod.CLUSTER}"
-            f" (wrapper {row['wrapper_ms']:.4f}); by cluster size "
-            + ", ".join(f"{cs}: {t:.4f}" for cs, t in by_cluster.items())
-            + f"; plain {row['plain_ms']:.3f} ms, cuDNN yardstick {row['library_ms']:.4f} ms,"
+        log(f"  film_reencode B={B}: {row['ms']:.4f} ms (wrapper {row['wrapper_ms']:.4f});"
+            f" plain {row['plain_ms']:.3f} ms, cuDNN yardstick {row['library_ms']:.4f} ms,"
             f" bound {b_ms:.5f} ms by {b_by}; the serial chain is {F} x max q_len ="
             f" {F * int(lens.max())} dependent steps")
     return rows
@@ -454,9 +443,10 @@ def check_int8_matmul(dev):
     return rows
 
 
-# Folded rows (B x T x 10 x 13) at which the trunk's 1x1 conv runs on the
-# served paths: batch 1 T35, time_multi_hop batch 16 T35, batch 32 T20 and T35.
-GATE_ROWS = (4550, 72800, 83200, 91000, 145600)
+# Folded rows (B x T x 10 x 13) of the gate sweep: those at which the trunk's
+# 1x1 conv runs on the served paths (batch 1 T35, time_multi_hop batch 16 at
+# T20 and T35, batch 32 at T20 and T35), then batch 128 and 256 at T35.
+GATE_ROWS = (4550, 41600, 72800, 83200, 145600, 582400, 1164800)
 
 
 def sweep_int8_gate(dev):
@@ -471,7 +461,10 @@ def sweep_int8_gate(dev):
 
     Holds the two against each other (y within one bf16 ulp; yq within one
     int8 step, since the kernel requantizes the f32 y and the plain route the
-    stored bf16 one). -> {rows: (fused ms, plain ms, kernel device ms)}."""
+    stored bf16 one), and INT8_FUSED_MAX_ROWS against the times: raises
+    unless the fused route is the faster at every count at or under the gate
+    and the plain route at every count above it.
+    -> {rows: (fused ms, plain ms, kernel device ms)}."""
     cpu_gen = torch.Generator().manual_seed(12)
     gen = torch.Generator(device=dev).manual_seed(12)
     C = 1024
@@ -510,16 +503,19 @@ def sweep_int8_gate(dev):
         del y, yq, yp, yqp, step
         iters = max(5, 200 * 4550 // rows)
         p1, f1, f2, p2 = (time_ms(fn, iters) for fn in (plain, fused, fused, plain))
-        dev_ms = kernel_device_ms(fused, "int8_matmul_kernel", iters=5) or float("nan")
+        dev_ms = kernel_device_ms(fused, "int8_matmul_kernel", iters=5)
         out[rows] = ((f1 + f2) / 2, (p1 + p2) / 2, dev_ms)
         b_ms, _ = bound_ms(rows * C * 5 + C * C + 2 * C * 4 + 8, 2 * rows * C * C, INT8_OPS)
         log(f"  int8 gate sweep rows={rows}: fused route {f1:.4f} / {f2:.4f} ms (the kernel"
             f" alone {dev_ms:.4f}, bound {b_ms:.5f}), plain route {p1:.4f} / {p2:.4f} ms")
+        del x
+        torch.cuda.empty_cache()
     gate = INT8_FUSED_MAX_ROWS
-    agree = all((f <= p) == (rows <= gate) for rows, (f, p, _) in out.items())
+    faster = [r for r, (f, p, _) in out.items() if f <= p]
     log(f"  int8 gate: INT8_FUSED_MAX_ROWS = {gate}; the fused route is faster at"
-        f" {[r for r, (f, p, _) in out.items() if f <= p]} rows in this run; the gate"
-        f" {'agrees' if agree else 'DOES NOT agree'} with this run's sweep")
+        f" {faster} rows in this run")
+    if faster != [r for r in GATE_ROWS if r <= gate]:
+        raise AssertionError(f"INT8_FUSED_MAX_ROWS = {gate} disagrees with this run's sweep")
     return out
 
 
@@ -988,9 +984,8 @@ def main():
     launches, ms, worst, served_ms = serve(dev)
     log("  port kernels' device ms over the serve phase's profiled batches (one batch of each"
         " timed configuration): " + ", ".join(f"{k} {v:.4f}" for k, v in served_ms.items()))
-    log(f"  film_reencode on {card}, ms by cluster size (B: {{size: ms}}): "
-        + ", ".join(f"{b}: {r['by_cluster']}" for b, r in reenc.items())
-        + f"; cuDNN yardstick ms: " + ", ".join(f"{b}: {r['library_ms']:.4f}" for b, r in reenc.items()))
+    log(f"  film_reencode on {card}, B: kernel ms, cuDNN yardstick ms: "
+        + ", ".join(f"{b}: {r['ms']:.4f}, {r['library_ms']:.4f}" for b, r in reenc.items()))
     log(f"  int8 gate sweep on {card} (rows: fused route ms, plain route ms, kernel ms): "
         + ", ".join(f"{r}: {f:.4f}, {p:.4f}, {d:.4f}" for r, (f, p, d) in gate.items()))
     log(f"  serving on {card}, kernel path (plain path) ms/video: "

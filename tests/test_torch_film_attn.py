@@ -173,12 +173,27 @@ def test_int8_fused_row_gate(monkeypatch):
 
 def test_int8_fused_row_gate_value():
     """The port's gate comes from its own measurement on the H100
-    (chip_smoke.py sweep_int8_gate): every served batch, up to 32 x 35
-    frames x 10 x 13 folded rows, takes the fused kernel. The JAX package
-    keeps the 9,100 it measured on a TPU."""
-    assert film_mod.INT8_FUSED_MAX_ROWS == 32 * 35 * 130
+    (chip_smoke.py sweep_int8_gate): the fused kernel was the faster route at
+    every count swept, up to 256 x 35 frames x 10 x 13 folded rows, so every
+    served batch (at most 32 x 35) takes it. The JAX package keeps the 9,100
+    it measured on a TPU."""
+    assert film_mod.INT8_FUSED_MAX_ROWS == 256 * 35 * 130
     jax_film = importlib.import_module("videonavqa_tpu.models.film")
     assert jax_film.INT8_FUSED_MAX_ROWS == 9100
+
+
+@pytest.mark.parametrize("channels", [1088, 2048, 4096])
+def test_int8_trunk_wider_than_the_fused_kernel_is_refused_at_set_up(channels):
+    """Off the CPU a trunk whose 1x1 conv the kernel does not take (K over
+    1024, or not a multiple of 128) is refused when the trunk is set up, not
+    at its first launch; on the CPU the plain version takes any width."""
+    cfg = ModelConfig(model="film_attn_pt", num_res_block_channels=channels,
+                      use_int8_trunk=True, use_pallas_kernels=True)
+    state = {"int8_scales": {}, "int8_wq": {}}
+    with pytest.raises(ValueError, match="K <= 1024"):
+        film_mod._trunk_convs({}, state, cfg, 4550, {}, torch.device("meta"))
+    _, block_convs = film_mod._trunk_convs({}, state, cfg, 4550, {}, torch.device("cpu"))
+    assert block_convs is not None
 
 
 def test_eval_step_widens_fp8_features():

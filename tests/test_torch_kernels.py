@@ -277,14 +277,6 @@ def test_int8_matmul_kernel_refuses_a_reduction_deeper_than_its_panel():
                                 m(128), m(128), m())
 
 
-@pytest.mark.parametrize("cluster", [1, 3, 16])
-def test_film_reencode_kernel_refuses_other_cluster_sizes(cluster):
-    m = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device="meta")
-    with pytest.raises(ValueError, match="cluster"):
-        reenc_mod.film_reencode(m(5, 3, 512), m(512, 128), m(512), m(3, dtype=torch.int32), 2,
-                                cluster=cluster)
-
-
 def test_film_reencode_kernel_refuses_more_batch_rows_than_its_grid():
     m = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device="meta")
     with pytest.raises(ValueError, match="batch rows"):

@@ -14,7 +14,7 @@
 // and all of h per thread, from shared memory every step spent ~3,000 clocks
 // a step on shared-memory delivery. The design spreads W_hh over a
 // thread-block cluster instead:
-//   - a cluster of CS blocks (2, 4 or 8) per batch row; block r owns hidden
+//   - a cluster of CS = 8 blocks per batch row; block r owns hidden
 //     units [r H / CS, (r + 1) H / CS) and holds the four gate rows of each
 //     of its units wholly in registers (256 KB / CS per block);
 //   - eight threads share a unit, each holding its 4 gates x 16 columns of
@@ -35,6 +35,8 @@
 //   - the carry freezes at t >= q_len, so those steps change nothing and are
 //     skipped: a row runs F x q_len steps, not F x Tq. Clusters beyond one
 //     wave queue, so any B runs; batch 1 uses CS SMs.
+// CS = 8 was the fastest of 2, 4 and 8 on an H100 at batch 1, 32 and 45 (the
+// sweep is in PERF.md); another size is a -D CS=... build of this file.
 // All arithmetic is f32 (no reduced-precision weights); the sums are taken in
 // another order than the plain version's.
 
@@ -46,6 +48,10 @@ namespace {
 constexpr int H = 128;          // hidden size the kernel is written for
 constexpr int KS = 8;           // threads that share a hidden unit, each 16 columns
 constexpr int KPT = H / KS;     // columns of W_hh per thread (for each of the 4 gates)
+#ifndef CS
+#define CS 8                    // blocks in the cluster that runs one batch row
+#endif
+static_assert(CS == 2 || CS == 4 || CS == 8, "a cluster of 2, 4 or 8 blocks");
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
 
@@ -93,7 +99,6 @@ __device__ __forceinline__ void st_async(float* p, uint64_t* bar, uint32_t rank,
                :: "r"(rp), "f"(v), "r"(rb) : "memory");
 }
 
-template <int CS>
 __global__ void __launch_bounds__(KS * H / CS, 1)
 film_reencode_kernel(const float* __restrict__ xw,    // [Tq, B, 4H]
                      const float* __restrict__ w_hh,  // [4H, H]
@@ -185,7 +190,6 @@ film_reencode_kernel(const float* __restrict__ xw,    // [Tq, B, 4H]
   cluster_sync();   // no block leaves while a peer may still write into it
 }
 
-template <int CS>
 int launch(const void* xw, const void* w_hh, const void* b_hh, const void* lens, void* finals,
            int Tq, int B, int F, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
@@ -201,7 +205,7 @@ int launch(const void* xw, const void* w_hh, const void* b_hh, const void* lens,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, film_reencode_kernel<CS>, (const float*)xw, (const float*)w_hh, (const float*)b_hh,
+      &cfg, film_reencode_kernel, (const float*)xw, (const float*)w_hh, (const float*)b_hh,
       (const int*)lens, (float*)finals, Tq, B, F);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -210,18 +214,11 @@ int launch(const void* xw, const void* w_hh, const void* b_hh, const void* lens,
 }  // namespace
 
 // xw [Tq, B, 4H], w_hh [4H, H], b_hh [4H] f32; lens [B] int32 -> finals [F, B, H] f32,
-// with a cluster of `cluster` (2, 4 or 8) blocks per batch row. Returns the
-// CUDA error of the launch (0 on success). Needs hidden == 128 and
-// 1 <= B <= 65,535.
+// with a cluster of CS blocks per batch row. Returns the CUDA error of the
+// launch (0 on success). Needs hidden == 128 and 1 <= B <= 65,535.
 extern "C" int film_reencode(const void* xw, const void* w_hh, const void* b_hh,
                              const void* lens, void* finals, int Tq, int B, int F,
-                             int hidden, int cluster, void* stream) {
+                             int hidden, void* stream) {
   if (hidden != H || B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (cluster) {
-    case 2: return launch<2>(xw, w_hh, b_hh, lens, finals, Tq, B, F, s);
-    case 4: return launch<4>(xw, w_hh, b_hh, lens, finals, Tq, B, F, s);
-    case 8: return launch<8>(xw, w_hh, b_hh, lens, finals, Tq, B, F, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return launch(xw, w_hh, b_hh, lens, finals, Tq, B, F, (cudaStream_t)stream);
 }

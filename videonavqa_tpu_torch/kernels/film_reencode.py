@@ -19,13 +19,7 @@ from videonavqa_tpu_torch.ops.lstm import last_valid, lstm
 
 launches = 0
 
-# Blocks in the cluster that runs one batch row; the kernel takes 2, 4 or 8.
-# 8 was the fastest on an NVIDIA H100 at batch 1 and 45 and level with 4 at
-# batch 32 (chip_smoke.py check_film_reencode times all three).
-CLUSTER_SIZES = (2, 4, 8)
-CLUSTER = 8
-
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def film_reencode_plain(xw, w_hh, b_hh, lens, num_frames):
@@ -40,12 +34,11 @@ def film_reencode_plain(xw, w_hh, b_hh, lens, num_frames):
     return torch.stack(finals)
 
 
-def film_reencode(xw, w_hh, b_hh, lens, num_frames, *, cluster=CLUSTER):
+def film_reencode(xw, w_hh, b_hh, lens, num_frames):
     """xw [Tq, B, 4H] f32, w_hh [4H, H], b_hh [4H] f32,
     lens [B] int32 -> finals [F, B, H] f32.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel, with
-    ``cluster`` blocks per batch row."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
     global launches
     if xw.device.type == "cpu":
         return film_reencode_plain(xw, w_hh, b_hh, lens, num_frames)
@@ -56,9 +49,6 @@ def film_reencode(xw, w_hh, b_hh, lens, num_frames, *, cluster=CLUSTER):
         raise ValueError(f"film_reencode kernel needs hidden size 128, got {H}")
     if not 1 <= B <= 65535:
         raise ValueError(f"film_reencode kernel takes 1 to 65,535 batch rows, got {B}")
-    if cluster not in CLUSTER_SIZES:
-        raise ValueError(f"film_reencode kernel takes a cluster of {CLUSTER_SIZES} blocks,"
-                         f" got {cluster}")
     _build.require(xw, "xw", torch.float32, device=dev)
     _build.require(w_hh, "w_hh", torch.float32, (G, H), dev)
     _build.require(b_hh, "b_hh", torch.float32, (G,), dev)
@@ -66,7 +56,7 @@ def film_reencode(xw, w_hh, b_hh, lens, num_frames, *, cluster=CLUSTER):
     finals = torch.empty((num_frames, B, H), dtype=torch.float32, device=dev)
     fn = _build.function("film_reencode", "film_reencode", _ARGTYPES)
     err = fn(xw.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), lens.data_ptr(),
-             finals.data_ptr(), Tq, B, int(num_frames), H, cluster, _build.stream_ptr(dev))
+             finals.data_ptr(), Tq, B, int(num_frames), H, _build.stream_ptr(dev))
     _build.check(err, "film_reencode launch")
     launches += 1
     return finals

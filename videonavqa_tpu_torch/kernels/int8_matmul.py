@@ -42,6 +42,13 @@ def int8_matmul_plain(x2, wq, comb, bias, sx, nx, *, relu, out_dtype):
     return y.to(out_dtype), quantize_act(y, nx)
 
 
+def check_shape(M, N, K):
+    """Raises unless the kernel takes an [M, K] x [N, K] product."""
+    if M < 1 or N < 128 or N % 128 or K < 128 or K % 128 or K > MAX_K:
+        raise ValueError(f"int8_matmul kernel needs M >= 1, N % 128 == 0, K % 128 == 0 and"
+                         f" K <= {MAX_K}, got M={M}, N={N}, K={K}")
+
+
 def _launch(x2, wq, comb, bias, sx, nx, *, relu, out_dtype):
     global launches
     M, K = x2.shape
@@ -51,9 +58,7 @@ def _launch(x2, wq, comb, bias, sx, nx, *, relu, out_dtype):
         raise ValueError(f"x: expected bfloat16 or float32, got {x2.dtype}")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"out_dtype: expected bfloat16 or float32, got {out_dtype}")
-    if M < 1 or N < 128 or N % 128 or K < 128 or K % 128 or K > MAX_K:
-        raise ValueError(f"int8_matmul kernel needs M >= 1, N % 128 == 0, K % 128 == 0 and"
-                         f" K <= {MAX_K}, got M={M}, N={N}, K={K}")
+    check_shape(M, N, K)
     _build.require(x2, "x", x2.dtype, (M, K), dev)
     _build.require(wq, "wq", torch.int8, (N, K), dev)
     _build.require(comb, "comb", torch.float32, (N,), dev)

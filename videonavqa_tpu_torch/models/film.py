@@ -20,7 +20,7 @@ import torch
 
 from videonavqa_tpu_torch.kernels.attn_tail import attn_tail, attn_tail_plain
 from videonavqa_tpu_torch.kernels.film_reencode import film_reencode_plain, film_reencode
-from videonavqa_tpu_torch.kernels.int8_matmul import matmul_int8_fused
+from videonavqa_tpu_torch.kernels.int8_matmul import check_shape, matmul_int8_fused
 from videonavqa_tpu_torch.models.base import DTYPES, eval_only, register_model
 from videonavqa_tpu_torch.ops import initializers as init
 from videonavqa_tpu_torch.ops.conv import conv2d
@@ -36,11 +36,12 @@ from videonavqa_tpu_torch.utils.device import tree_to
 # Measured on an NVIDIA H100 80GB HBM3 at a 700 W power limit by
 # chip_smoke.py's sweep_int8_gate: the fused route (one kernel for the 1x1
 # conv, its ReLU and the 3x3 conv's int8 input) beat the plain route
-# (conv2d_int8_prequant, ReLU, the 3x3 conv's own quantize) at every served
-# count, from 4,550 rows (batch 1 x 35 frames) to 145,600 (batch 32 x 35), so
-# every served batch takes the kernel. Nothing above 145,600 rows is measured.
-# (The JAX package's 9,100 was measured on a TPU v5e.)
-INT8_FUSED_MAX_ROWS = 145600
+# (conv2d_int8_prequant, ReLU, the 3x3 conv's own quantize) at every count
+# swept, from 4,550 rows (batch 1 x 35 frames) through every served count to
+# 1,164,800 (batch 256 x 35), its lead growing with the rows. The gate is the
+# largest count swept; above it the route is unmeasured. (The JAX package's
+# 9,100 was measured on a TPU v5e.)
+INT8_FUSED_MAX_ROWS = 1164800
 
 def init_film_trunk(gen, cfg):
     """conv_init + bn_init + N x (conv3x3, conv1x1)."""
@@ -53,9 +54,10 @@ def init_film_trunk(gen, cfg):
     return params, {"bn_init": bn_state}
 
 
-def _trunk_convs(params, state, cfg, rows, new_state):
+def _trunk_convs(params, state, cfg, rows, new_state, device):
     """(conv, block_convs) of the trunk's mode; block_convs is None unless the
-    fused int8 1x1 kernel runs."""
+    fused int8 1x1 kernel runs. Off the CPU, a trunk whose width the kernel
+    does not take is refused here, before any conv runs."""
     dtype = DTYPES[cfg.compute_dtype]
     if cfg.int8_trunk_calibrate:
         captured, captured_wq = {}, {}
@@ -84,6 +86,9 @@ def _trunk_convs(params, state, cfg, rows, new_state):
 
     if not (cfg.use_pallas_kernels and rows <= INT8_FUSED_MAX_ROWS):
         return conv, None
+    if device.type != "cpu":
+        ch = cfg.num_res_block_channels
+        check_shape(rows, ch, ch)
 
     def block_convs(k, x, p1x1, p3x3):
         n1, n3 = f"conv1x1_{k}", f"conv3x3_{k}"
@@ -107,7 +112,8 @@ def film_trunk(params, state, feats, film_values, frame_mask, cfg, *, train=Fals
     ch = cfg.num_res_block_channels
     new_state = dict(state)
     conv, block_convs = _trunk_convs(params, state, cfg,
-                                     B * T * feats.shape[2] * feats.shape[3], new_state)
+                                     B * T * feats.shape[2] * feats.shape[3], new_state,
+                                     feats.device)
     if block_convs is None:
         def block_convs(k, x, p1x1, p3x3):
             res = torch.relu(conv(p1x1, x, f"conv1x1_{k}"))
