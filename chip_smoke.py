@@ -14,7 +14,9 @@ kernel's plain version):
              stated below; times the kernel, the plain version and, where one
              PyTorch call computes part of the same work, that call
              (``library_ms``, a yardstick the port never calls): the
-             re-encode also against 35 chained cuDNN LSTM calls; then the
+             re-encode also against 35 chained cuDNN LSTM calls, the LSTM
+             kernel at time_multi_hop's chained launch (35 passes) and at
+             single passes from non-zero (h0, c0); then the
              int8 row gate: both routes of a trunk block's 1x1 conv (the
              fused kernel; conv2d_int8_prequant, ReLU and the 3x3 conv's
              quantize) timed at the served folded row counts and above
@@ -37,7 +39,8 @@ kernel's plain version):
              eval.sh preset (3 FiLM blocks x 1024 channels, 64 tail
              channels, hidden/embed 128, int8 trunk)
              at batch 16 in two frame buckets and batch 1, where the LSTM
-             kernel launches once per frame; and for lstm, v_only_cnn2d_lstm,
+             kernel launches once a forward, its passes over the frames
+             chained; and for lstm, v_only_cnn2d_lstm,
              concat2d and mac at the ModelConfig defaults (hidden 128,
              mac_dim 512, 12 MAC steps) at batch 32 and batch 1, the video
              models from seeded uint8 frames [35, 160, 208, 3].
@@ -123,32 +126,34 @@ def time_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def kernel_device_ms(fn, kernel, iters=10):
+def kernel_device_ms(fn, kernel, iters=10, windows=3):
     """Device time of one launch of the CUDA kernel named ``kernel`` inside
     ``fn()``, read from torch.profiler (CUPTI); raises where the profiler sees
-    no such kernel."""
+    no such kernel in ``windows`` profiled windows (one window on the card
+    once recorded no kernel at all of a path that launches one every call)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
-    total_us = sum(e.self_device_time_total for e in hits)
-    count = sum(e.count for e in hits)
-    if not count:
-        raise AssertionError(f"the profiler saw no {kernel} launch")
-    return total_us / count / 1e3
+    for window in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
+        count = sum(e.count for e in hits)
+        if count:
+            return sum(e.self_device_time_total for e in hits) / count / 1e3
+        log(f"  profiler window {window + 1} of {windows} saw no {kernel} launch")
+    raise AssertionError(f"the profiler saw no {kernel} launch")
 
 
 # Substrings of the CUDA kernel names of each kernel of the port.
 KERNEL_NAMES = {"film_reencode": ("film_reencode_kernel",), "attn_tail": ("attn_tail_kernel",),
                 "int8_matmul_fused": ("int8_matmul_kernel",),
-                "lstm": ("lstm_h128_kernel", "lstm_wide_kernel"),
-                "vgg_block1": ("vgg_block1_kernel",)}
+                "lstm": ("lstm_h128_cluster_kernel", "lstm_wide_kernel"),
+                "vgg_block1": ("vgg_block1_bf16_kernel", "vgg_block1_f32_kernel")}
 
 
 def device_breakdown(fn, top=8, tally=None):
@@ -303,32 +308,42 @@ def check_attn_tail(dev):
     return rows
 
 
-# (B, T, H) at which the served models launch the LSTM kernel, and batch 1 at
-# each hidden size. The first row of each H is the one that is timed.
+# (F, B, T, H) at which the served models launch the LSTM kernel: F passes
+# chained in one launch (time_multi_hop's question re-encoded once per frame)
+# and single passes (F = 1), with batch 1 at each hidden size; at hidden 512
+# a chain the wrapper runs as one wide-kernel launch a pass.
 LSTM_SHAPES = (
-    (32, 56, 128),    # lstm (q-only) and concat2d's q_lstm
-    (16, 56, 128),    # time_multi_hop's q_encoder, once per frame
-    (32, 35, 128),    # v_only_cnn2d_lstm and concat2d's v_lstm
-    (1, 56, 128),
-    (32, 56, 512),    # mac's biLSTM, forward and backward
-    (1, 56, 512),
-    (32, 35, 1536),   # mac's tail LSTM
-    (1, 35, 1536),
+    (35, 16, 56, 128),   # time_multi_hop batch 16 at frame bucket 35, one launch
+    (20, 16, 56, 128),   # time_multi_hop batch 16 at frame bucket 20
+    (35, 1, 56, 128),    # time_multi_hop batch 1
+    (1, 32, 56, 128),    # lstm (q-only) and concat2d's q_lstm
+    (1, 16, 56, 128),    # one pass of time_multi_hop's chain (its launch before chaining)
+    (1, 32, 35, 128),    # v_only_cnn2d_lstm and concat2d's v_lstm
+    (1, 1, 56, 128),
+    (1, 32, 56, 512),    # mac's biLSTM, forward and backward
+    (1, 1, 56, 512),
+    (3, 4, 20, 512),     # a chain at a hidden size other than 128: a launch a pass
+    (1, 32, 35, 1536),   # mac's tail LSTM
+    (1, 1, 35, 1536),
 )
-LSTM_MAIN = (16, 56, 128)   # the shape on the JSON line: time_multi_hop's
+LSTM_MAIN = (35, 16, 56, 128)   # the shape on the JSON line: time_multi_hop's
+LSTM_TIMED = (LSTM_MAIN, (1, 32, 56, 128), (1, 16, 56, 128), (1, 32, 56, 512),
+              (1, 32, 35, 1536))
 
 
 def check_lstm(dev):
-    """Each (B, T, H) of LSTM_SHAPES: ragged lens including 1 and T, non-zero
-    h0 and c0; outs, h_f and c_f within RECURRENCE_ATOL of the plain version
-    and outs exactly zero at t >= len. ``library_ms`` is one torch.nn.LSTM
-    forward (cuDNN) of the same shape from the same weights and state: it
-    takes the un-projected input and has no length masking (every row runs
-    all T steps), so it is a yardstick for the unmasked recurrence only."""
+    """Each (F, B, T, H) of LSTM_SHAPES: ragged lens including 1 and T, non-zero
+    h0 and c0; outs of every pass, h_f and c_f within RECURRENCE_ATOL of the
+    plain version (F chained lstm_plain calls) and outs exactly zero at
+    t >= len in every pass. ``library_ms`` of a single pass is one
+    torch.nn.LSTM forward (cuDNN) of the same shape from the same weights and
+    state: it takes the un-projected input and has no length masking (every
+    row runs all T steps), so it is a yardstick for the unmasked recurrence
+    only; of a chain, F chained torch.nn.LSTM calls over the input packed by
+    its lengths (``reencode_library``, from zero state)."""
     gen = torch.Generator().manual_seed(6)
     rows = {}
-    timed = set()
-    for B, T, H in LSTM_SHAPES:
+    for F, B, T, H in LSTM_SHAPES:
         cell = init.torch_default_lstm(gen, H, H) if H > 128 else init.reference_lstm(gen, H, H)
         lens = torch.randint(1, T + 1, (B,), generator=gen, dtype=torch.int32)
         lens[0] = T if B == 1 else 1
@@ -337,40 +352,49 @@ def check_lstm(dev):
         x = torch.randn((B, T, H), generator=gen)
         xw = (x @ cell["w_ih"].t() + cell["b_ih"]).transpose(0, 1).contiguous()
         h0, c0 = torch.randn((B, H), generator=gen), torch.randn((B, H), generator=gen)
-        args = [t.to(dev) for t in (xw, cell["w_hh"], cell["b_hh"], lens, h0, c0)]
-        got = lstm_mod.lstm(*args)
-        want = lstm_mod.lstm_plain(*args)
+        args = [t.to(dev) for t in (xw, cell["w_hh"], cell["b_hh"], lens, h0, c0)] + [F]
+        got = lstm_mod.lstm_frames(*args)
+        want = lstm_mod.lstm_frames_plain(*args)
         torch.cuda.synchronize()
         err = max((g - w).abs().max().item() for g, w in zip(got, want))
         past = torch.arange(T, device=dev)[:, None] >= args[3][None, :]          # [T, B]
         stray = float((got[0].abs() * past[..., None]).max())
-        tag = f"B={B} T={T} H={H}"
+        tag = f"F={F} B={B} T={T} H={H}"
         log(f"  lstm {tag}: max_abs_err {err:.3e} over outs, h_f, c_f (atol {RECURRENCE_ATOL});"
             f" largest |out| at t >= len: {stray}")
         if not err <= RECURRENCE_ATOL or stray != 0.0:
             raise AssertionError(f"lstm {tag} disagrees: {err}, {stray}")
-        rows[(B, T, H)] = row = dict(max_abs_err=err)
-        if H in timed and (B, T, H) != LSTM_MAIN:
+        rows[(F, B, T, H)] = row = dict(max_abs_err=err)
+        if (F, B, T, H) not in LSTM_TIMED:
             continue
-        timed.add(H)
-        steps = int(lens.sum())
-        nbytes = 4 * (xw.numel() + 4 * H * H + 4 * H + B + 2 * B * H + T * B * H + 2 * B * H)
+        steps = F * int(lens.sum())
+        nbytes = 4 * (xw.numel() + 4 * H * H + 4 * H + B + 2 * B * H + F * T * B * H + 2 * B * H)
         ops = steps * (2 * 4 * H * H + 12 * H)
         b_ms, b_by = bound_ms(nbytes, ops, F32_FLOPS)
-        lib = torch.nn.LSTM(H, H, batch_first=True).to(dev)
-        with torch.no_grad():
-            for name, key in (("weight_ih_l0", "w_ih"), ("weight_hh_l0", "w_hh"),
-                              ("bias_ih_l0", "b_ih"), ("bias_hh_l0", "b_hh")):
-                getattr(lib, name).copy_(cell[key])
+        cell_dev = {k: v.to(dev) for k, v in cell.items()}
+        if F > 1:
+            library = reencode_library(cell_dev, x.to(dev), lens, F)
+        else:
+            lib = torch.nn.LSTM(H, H, batch_first=True).to(dev)
+            with torch.no_grad():
+                for name, key in (("weight_ih_l0", "w_ih"), ("weight_hh_l0", "w_hh"),
+                                  ("bias_ih_l0", "b_ih"), ("bias_hh_l0", "b_hh")):
+                    getattr(lib, name).copy_(cell_dev[key])
             x_dev, state = x.to(dev), (args[4][None], args[5][None])
-            row.update(bound_ms=b_ms, bound_by=b_by,
-                       library_ms=time_ms(lambda: lib(x_dev, state), 10),
-                       **timings(lambda: lstm_mod.lstm(*args), lambda: lstm_mod.lstm_plain(*args),
-                                 "lstm_h128_kernel" if H == 128 else "lstm_wide_kernel", 10, 2))
+
+            def library():
+                with torch.no_grad():
+                    return lib(x_dev, state)
+        row.update(bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library, 10),
+                   **timings(lambda: lstm_mod.lstm_frames(*args),
+                             lambda: lstm_mod.lstm_frames_plain(*args),
+                             "lstm_h128_cluster_kernel" if H == 128 else "lstm_wide_kernel",
+                             10, 1 if F > 1 else 2))
+        yard = f"{F} chained torch.nn.LSTM" if F > 1 else "torch.nn.LSTM (no masking)"
         log(f"  lstm {tag}: {row['ms']:.4f} ms (wrapper {row['wrapper_ms']:.4f}),"
-            f" plain {row['plain_ms']:.3f} ms, torch.nn.LSTM (no masking) {row['library_ms']:.4f} ms,"
-            f" bound {b_ms:.5f} ms by {b_by}; the serial chain is max len = {int(lens.max())}"
-            f" dependent steps, {steps} row-steps in all")
+            f" plain {row['plain_ms']:.3f} ms, {yard} {row['library_ms']:.4f} ms,"
+            f" bound {b_ms:.5f} ms by {b_by}; the serial chain is F x max len ="
+            f" {F * int(lens.max())} dependent steps, {steps} row-steps in all")
     return rows
 
 
@@ -583,7 +607,7 @@ def check_vgg_block1(dev):
         row.update(bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                    **timings(lambda: block1_mod.vgg_block1(params, x, dtype=dtype),
                              lambda: block1_mod.vgg_block1_plain(params, x, dtype=dtype),
-                             "vgg_block1_kernel", 10, 2))
+                             "vgg_block1_bf16_kernel", 10, 2))
         log(f"  vgg_block1 {tag}: {row['ms']:.4f} ms (wrapper {row['wrapper_ms']:.4f}),"
             f" plain {row['plain_ms']:.3f} ms, PyTorch block 1 {lib_ms:.4f} ms,"
             f" bound {b_ms:.5f} ms by {b_by} ({ops / 1e12:.3f} TFLOP)")
@@ -872,7 +896,7 @@ def serve_film_attn_video(dev, video, tally):
 
 def serve_time_multi_hop(dev, feats, tally):
     """eval.sh preset: 3 FiLM blocks x 1024 channels, 64 tail channels, batch 16.
-    The LSTM kernel launches once per served frame (20 + 35 + 35); the fused
+    The LSTM kernel launches once a forward, all frames chained (3); the fused
     int8 1x1 kernel once per block in each forward at or under the row gate
     (batch 16: 41,600 and 72,800 folded rows; batch 1: 4,550)."""
     cfg = ModelConfig(model="time_multi_hop", num_res_blocks=3, num_res_block_channels=1024,
@@ -882,7 +906,7 @@ def serve_time_multi_hop(dev, feats, tally):
                       use_pallas_kernels=True, use_int8_trunk=True)
     launches, ms, worst = serve_stem_model(dev, cfg, feats, 16, 7, tally)
     expect_launches(cfg.model, launches, {
-        "lstm": 20 + 35 + 35,
+        "lstm": 3,
         "int8_matmul_fused": fused_1x1_launches(3, 16 * 20 * 130, 16 * 35 * 130, 35 * 130)})
     return launches, ms, worst
 

@@ -134,6 +134,39 @@ def test_lstm_matches_pallas_and_scan(carry, precomputed):
     assert float(outs[1, 4:].abs().max()) == 0.0 and float(outs[2, 1:].abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("num_frames", [1, 3])
+def test_lstm_frames_matches_pallas_chained_over_frames(num_frames):
+    """The chained wrapper (the plain version on the CPU) against lstm_pallas
+    in interpret mode called once a pass with the carry threaded through, as
+    the JAX time_multi_hop's scan over frames calls it: every pass's outs
+    (zero at t >= len) and the final carry, from non-zero (h0, c0)."""
+    B, T, E, H = 4, 9, 8, 8
+    cell = jinit.reference_lstm(jax.random.PRNGKey(3), E, H)
+    r = np.random.default_rng(7)
+    x = r.standard_normal((B, T, E)).astype(np.float32)
+    lens = np.array([9, 1, 5, 3], np.int32)
+    h0, c0 = (r.standard_normal((B, H)).astype(np.float32) for _ in range(2))
+    jxw = jnp.asarray(x) @ cell["w_ih"].T + cell["b_ih"]
+    h, c = jnp.asarray(h0), jnp.asarray(c0)
+    want = []
+    for _ in range(num_frames):
+        outs, (h, c) = lstm_pallas(cell, jnp.asarray(x), jnp.asarray(lens), h, c,
+                                   precomputed_xw=jxw, interpret=True)
+        want.append(np.asarray(outs).transpose(1, 0, 2))          # [T, B, H]
+    tcell = _t(cell)
+    before = lstm_mod.launches
+    got, got_h, got_c = lstm_mod.lstm_frames(
+        _t(np.asarray(jxw)).transpose(0, 1).contiguous(), tcell["w_hh"], tcell["b_hh"],
+        _t(lens), _t(h0), _t(c0), num_frames)
+    assert lstm_mod.launches == before  # the CPU runs the plain version
+    assert got.shape == (num_frames, T, B, H)
+    np.testing.assert_allclose(got.numpy(), np.stack(want), atol=RECURRENCE_ATOL)
+    np.testing.assert_allclose(got_h.numpy(), np.asarray(h), atol=RECURRENCE_ATOL)
+    np.testing.assert_allclose(got_c.numpy(), np.asarray(c), atol=RECURRENCE_ATOL)
+    past = np.arange(T)[:, None] >= lens[None, :]                  # [T, B]
+    assert float(got.abs().numpy()[:, past].max()) == 0.0
+
+
 def test_lstm_plain_is_the_route_without_the_kernel():
     """use_kernel=False and the kernel route's CPU branch are the same function."""
     r = np.random.default_rng(6)
@@ -203,6 +236,18 @@ def test_build_list_names_every_source():
     assert sorted(_build.SOURCES) == sorted(p.stem for p in _build.CSRC.glob("*.cu"))
 
 
+def test_build_name_follows_the_shared_headers(monkeypatch, tmp_path):
+    """film_reencode.cu and lstm.cu include csrc/lstm_cluster.cuh: an edit of
+    a header gives every library a new name, so none is loaded stale."""
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build._lib_path("k")
+    assert _build._lib_path("k") == before
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert _build._lib_path("k") != before
+
+
 def test_wrappers_refuse_non_cuda_non_cpu_tensors():
     """A wrapper takes the plain version only for CPU tensors; anything else
     goes to the kernel, which checks its inputs and raises."""
@@ -225,6 +270,20 @@ def test_lstm_kernel_refuses_shapes_it_does_not_take(B, H):
     with pytest.raises(ValueError, match="hidden size other than 128"):
         lstm_mod.lstm(m(5, B, 4 * H), m(4 * H, H), m(4 * H), m(B, dtype=torch.int32),
                       m(B, H), m(B, H))
+
+
+def test_lstm_frames_refuses_shapes_it_does_not_take():
+    """Off the CPU: no pass count below 1, and at hidden size 128 no more
+    batch rows than the grid's y holds clusters; refused, not handed to the
+    plain version."""
+    m = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device="meta")
+    with pytest.raises(ValueError, match="pass count"):
+        lstm_mod.lstm_frames(m(5, 3, 512), m(512, 128), m(512), m(3, dtype=torch.int32),
+                             m(3, 128), m(3, 128), 0)
+    B = lstm_mod.MAX_BATCH_H128 + 1
+    with pytest.raises(ValueError, match="batch rows"):
+        lstm_mod.lstm_frames(m(5, B, 512), m(512, 128), m(512), m(B, dtype=torch.int32),
+                             m(B, 128), m(B, 128), 2)
 
 
 def _block1_params(device="cpu"):
@@ -282,3 +341,26 @@ def test_film_reencode_kernel_refuses_more_batch_rows_than_its_grid():
     with pytest.raises(ValueError, match="batch rows"):
         reenc_mod.film_reencode(m(5, 65536, 512), m(512, 128), m(512),
                                 m(65536, dtype=torch.int32), 2)
+
+
+def test_film_attn_refuses_a_hidden_size_its_reencode_kernel_does_not_take():
+    """film_attn_pt with the kernels on and hidden_size != 128 is refused when
+    its forward sets up its kernels off the CPU, before any kernel runs, not
+    at the re-encode's first launch; on the CPU it runs the plain versions."""
+    from videonavqa_tpu_torch.models import ModelConfig, get_model
+    from videonavqa_tpu_torch.train.step import forward
+
+    cfg = ModelConfig(model="film_attn_pt", num_classes=5, vocab_size=11, embed_size=8,
+                      hidden_size=8, at_hidden_size=8, num_res_blocks=1,
+                      num_res_block_channels=8, num_input_channels=4, max_num_frames=3,
+                      max_q_len=5, compute_dtype="float32", use_pallas_kernels=True)
+    spec = get_model(cfg.model)
+    params, state = spec.init(torch.Generator().manual_seed(0), cfg, "meta")
+    m = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device="meta")
+    batch = {"v_features": m(2, 3, 10, 13, 4), "v_len": m(2, dtype=torch.int32),
+             "question": m(2, 5, dtype=torch.int32), "q_len": m(2, dtype=torch.int32)}
+    with pytest.raises(ValueError, match="hidden size 128"):
+        forward(spec, cfg, params, state, batch)
+    with pytest.raises(ValueError, match="hidden size 128"):
+        reenc_mod.check_shape(2, 8)
+    reenc_mod.check_shape(2, 128)

@@ -39,8 +39,9 @@ SMALL = dict(num_classes=7, vocab_size=19, embed_size=8, hidden_size=8,
 LOGIT_ATOL = 1e-4
 INT8_LOGIT_ATOL = 2e-3
 MODELS = ("lstm", "time_multi_hop", "v_only_cnn2d_lstm", "concat2d", "mac")
-# kernel launches of one forward on the kernel route (T = frames served)
-LAUNCHES = {"lstm": lambda T: 1, "time_multi_hop": lambda T: T, "v_only_cnn2d_lstm": lambda T: 1,
+# kernel launches of one forward on the kernel route (T = frames served;
+# time_multi_hop chains its T passes in one)
+LAUNCHES = {"lstm": lambda T: 1, "time_multi_hop": lambda T: 1, "v_only_cnn2d_lstm": lambda T: 1,
             "concat2d": lambda T: 2, "mac": lambda T: 3}
 BUCKETS = (2, 4, 6)
 MAX_Q_LEN = 56
@@ -183,13 +184,14 @@ def test_time_multi_hop_int8_trunk_matches_jax():
 @pytest.mark.parametrize("model", MODELS)
 def test_kernel_route_reaches_the_wrapper(model, monkeypatch):
     """With use_pallas_kernels every LSTM pass of the forward goes through the
-    kernel's wrapper (which, on the CPU, runs the plain version), the stated
-    number of times; without it, none does."""
+    chained kernel's wrapper (which, on the CPU, runs the plain version; the
+    single-pass ``lstm`` calls it with one pass), the stated number of times;
+    without it, none does."""
     _, _, _, _, cfg, params, state = _setup(model)
     spec = get_model(model)
     calls = []
-    real = lstm_mod.lstm
-    monkeypatch.setattr(lstm_mod, "lstm", lambda *a: calls.append(a[0].shape) or real(*a))
+    real = lstm_mod.lstm_frames
+    monkeypatch.setattr(lstm_mod, "lstm_frames", lambda *a: calls.append(a[0].shape) or real(*a))
     b = _torch(_batch(spec, 4))
     with torch.inference_mode():
         forward(spec, cfg, params, state, b)
@@ -253,8 +255,9 @@ def test_engine_serves_video_and_feature_models(model, tmp_path):
 
 
 def test_engine_serves_a_question_only_model(tmp_path):
-    """Items carry no frames; (h0, c0) come from the engine's generator, which
-    starts at the engine's seed and moves on from batch to batch."""
+    """Items carry no frames; (h0, c0) come from the engine's generator, reset
+    to the engine's seed for every batch, so a repeated request gets the same
+    answer, as the JAX daemon's PRNGKey(0) gives it."""
     eng, _, _, _, _ = _engine("lstm", tmp_path, 3)
     r = np.random.default_rng(4)
     items = [(None, 0, r.integers(1, 19, n).tolist()) for n in (5, 9)]
@@ -265,4 +268,4 @@ def test_engine_serves_a_question_only_model(tmp_path):
     h0, c0 = torch.randn((3, 8), generator=gen), torch.randn((3, 8), generator=gen)
     want = torch.softmax(q_only_lstm.apply_with_state(eng.params, batch, eng.cfg, h0, c0), -1)
     np.testing.assert_allclose(got, want[:2].numpy(), atol=1e-6)
-    assert np.abs(eng.run_batch(items) - got).max() > 1e-4
+    np.testing.assert_array_equal(eng.run_batch(items), got)

@@ -1,8 +1,10 @@
-// Masked LSTM over one batch of sequences, from a given (h0, c0).
+// Masked LSTM over one batch of sequences, from a given (h0, c0), and F
+// such passes chained over the same input.
 //
 // Replaces videonavqa_tpu/kernels/lstm_pallas.py (_lstm_kernel, called by
-// lstm_pallas). The input projection xw = x W_ih^T + b_ih is one matmul
-// outside; the recurrent product h W_hh^T is computed here. Per step t:
+// lstm_pallas; the JAX time_multi_hop calls it once per frame from a scan).
+// The input projection xw = x W_ih^T + b_ih is one matmul outside; the
+// recurrent product h W_hh^T is computed here. Per step t:
 //   gates = xw[t] + h W_hh^T + b_hh, gate order (i, f, g, o);
 //   c' = sigmoid(f) c + sigmoid(i) tanh(g);  h' = sigmoid(o) tanh(c');
 //   where t < len: (h, c) = (h', c') and outs[t] = h'; elsewhere the carry
@@ -14,12 +16,16 @@
 // hidden size 128, 4 MB at 512, 37.7 MB at 1536) to the FMA units. Device
 // memory bytes and operations are small beside that. Two designs:
 //
-//   - hidden size 128 (lstm_h128_kernel): the design of film_reencode.cu. One
-//     block per batch row, 512 threads, one gate row per thread, half of the
-//     row in registers and half in shared memory, the four gates of a unit
-//     meeting by warp shuffles, one block barrier per step. Steps at
-//     t >= len change nothing and are skipped; their outputs are stored as
-//     zeros.
+//   - hidden size 128 (lstm_h128_cluster_kernel): the chain of
+//     lstm_cluster.cuh, shared with film_reencode.cu: a cluster of 8 blocks
+//     per batch row, W_hh spread over the cluster's registers, 8 threads a
+//     hidden unit, the new h handed to every block by st.async into
+//     distributed shared memory with one mbarrier a buffer and no barrier a
+//     step. It runs F passes over the same xw in one launch, pass f + 1 from
+//     pass f's frozen final carry (F = 1: one pass from (h0, c0)), so a
+//     model that re-encodes its question once per frame loads W_hh once,
+//     not once a frame. Steps at t >= len change nothing and are skipped;
+//     their outputs are stored as zeros after the chain.
 //   - any other hidden size (lstm_wide_kernel): W_hh does not fit in one SM,
 //     so the hidden units are spread over the SMs: a cooperative launch of
 //     ceil(H / U) blocks, U hidden units each, one unit (its four gate rows)
@@ -41,98 +47,54 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lstm_cluster.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-__device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
+using lstm_cluster::sigmoidf;
 
 // ---------------------------------------------------------------- hidden 128
 
-constexpr int H128 = 128;           // hidden size of the specialised kernel
-constexpr int G128 = 4 * H128;      // gate rows = threads per block
-constexpr int KREG = 64;            // W_hh columns held in registers
-constexpr int KSM = H128 - KREG;    // W_hh columns held in shared memory
-constexpr size_t SMEM128 = (size_t)(KSM * G128 + 2 * H128) * sizeof(float);
-
-__global__ void __launch_bounds__(G128, 1)
-lstm_h128_kernel(const float* __restrict__ xw,    // [T, B, 4H]
-                 const float* __restrict__ w_hh,  // [4H, H]
-                 const float* __restrict__ b_hh,  // [4H]
-                 const int* __restrict__ lens,    // [B]
-                 const float* __restrict__ h0,    // [B, H]
-                 const float* __restrict__ c0,    // [B, H]
-                 float* __restrict__ outs,        // [T, B, H]
-                 float* __restrict__ h_f,         // [B, H]
-                 float* __restrict__ c_f,         // [B, H]
-                 int T, int B) {
-  constexpr int H = H128, G = G128;
-  extern __shared__ float smem[];
-  float* w_s = smem;             // w_s[k * G + t] = W_hh[row(t)][KREG + k]
-  float* h_s = smem + KSM * G;   // [2][H], double-buffered h
-
-  const int b = blockIdx.x;
-  const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int u = t >> 2, g = t & 3;
-  const int row = g * H + u;
-
-  float w_r[KREG];
-#pragma unroll
-  for (int k = 0; k < KREG; ++k) w_r[k] = w_hh[row * H + k];
-  for (int k = 0; k < KSM; ++k) w_s[k * G + t] = w_hh[row * H + KREG + k];
-  if (t < H) h_s[t] = h0[(size_t)b * H + t];
-  const float bias = b_hh[row];
+__global__ void __launch_bounds__(lstm_cluster::THREADS, 1)
+lstm_h128_cluster_kernel(const float* __restrict__ xw,    // [T, B, 4H]
+                         const float* __restrict__ w_hh,  // [4H, H]
+                         const float* __restrict__ b_hh,  // [4H]
+                         const int* __restrict__ lens,    // [B]
+                         const float* __restrict__ h0,    // [B, H]
+                         const float* __restrict__ c0,    // [B, H]
+                         float* __restrict__ outs,        // [F, T, B, H]
+                         float* __restrict__ h_f,         // [B, H]
+                         float* __restrict__ c_f,         // [B, H]
+                         int T, int B, int F) {
+  using namespace lstm_cluster;
+  __shared__ Chain ch;
+  const int b = blockIdx.y;
+  const int t = threadIdx.x, j = t % KS;
+  const int u0 = cluster_rank() * U, u = u0 + t / KS;
   const int len = min(max(lens[b], 0), T);
-  float c = c0[(size_t)b * H + u], h = h0[(size_t)b * H + u];  // live where g == 0
-  __syncthreads();
-
-  int cur = 0;
-  const float* xw_b = xw + (size_t)b * G + row;
-  const size_t xw_step = (size_t)B * G;
-  float* out_b = outs + (size_t)b * H + u;
-  const size_t out_step = (size_t)B * H;
-  float xv = len > 0 ? xw_b[0] : 0.f;
-  for (int s = 0; s < len; ++s) {
-    const int s_next = s + 1 < len ? s + 1 : 0;
-    const float xv_next = xw_b[s_next * xw_step];
-    const float* hc = h_s + cur * H;
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-#pragma unroll
-    for (int k = 0; k < KREG; k += 4) {
-      a0 = fmaf(hc[k], w_r[k], a0);
-      a1 = fmaf(hc[k + 1], w_r[k + 1], a1);
-      a2 = fmaf(hc[k + 2], w_r[k + 2], a2);
-      a3 = fmaf(hc[k + 3], w_r[k + 3], a3);
-    }
-#pragma unroll 8
-    for (int k = 0; k < KSM; k += 4) {
-      a0 = fmaf(hc[KREG + k], w_s[k * G + t], a0);
-      a1 = fmaf(hc[KREG + k + 1], w_s[(k + 1) * G + t], a1);
-      a2 = fmaf(hc[KREG + k + 2], w_s[(k + 2) * G + t], a2);
-      a3 = fmaf(hc[KREG + k + 3], w_s[(k + 3) * G + t], a3);
-    }
-    const float gate = (xv + ((a0 + a1) + (a2 + a3))) + bias;
-    const int base = lane & ~3;
-    const float gi = __shfl_sync(0xffffffffu, gate, base);
-    const float gf = __shfl_sync(0xffffffffu, gate, base + 1);
-    const float gg = __shfl_sync(0xffffffffu, gate, base + 2);
-    const float go = __shfl_sync(0xffffffffu, gate, base + 3);
-    if (g == 0) {
-      c = sigmoidf(gf) * c + sigmoidf(gi) * tanhf(gg);
-      h = sigmoidf(go) * tanhf(c);
-      h_s[(cur ^ 1) * H + u] = h;
-      out_b[s * out_step] = h;
-    }
-    cur ^= 1;
-    xv = xv_next;
-    __syncthreads();
-  }
-  if (g == 0) {
-    for (int s = len; s < T; ++s) out_b[s * out_step] = 0.f;
+  float h = h0[(size_t)b * H + u], c = c0[(size_t)b * H + u];
+  const size_t step = (size_t)B * H, frame = (size_t)T * step;
+  float* out_b = outs + (size_t)b * H;
+  run_chain(ch, xw, w_hh, b_hh, h0 + (size_t)b * H, b, B, len, F, h, c,
+            [&](int f, int s, float hs) {
+              if (j == 0) out_b[f * frame + s * step + u] = hs;
+            },
+            [](int, float) {});
+  if (j == 0) {
     h_f[(size_t)b * H + u] = h;
     c_f[(size_t)b * H + u] = c;
   }
+  // zeros at t >= len in every pass: the block's U units, 16 neighbouring
+  // threads on one row's neighbouring words
+  const int pad = T - len;
+  for (int i = t; i < F * pad * U; i += THREADS) {
+    const int r = i / U;
+    out_b[(r / pad) * frame + (len + r % pad) * step + u0 + i % U] = 0.f;
+  }
+  __syncwarp();
+  cluster_sync();   // no block leaves while a peer may still write into it
 }
 
 // ------------------------------------------------------------ any hidden size
@@ -290,27 +252,28 @@ cudaError_t launch_wide(void** args, int blocks, int H, cudaStream_t stream) {
 }  // namespace
 
 // xw [T, B, 4H], w_hh [4H, H], b_hh [4H], h0 and c0 [B, H] f32, lens [B] int32
-// -> outs [T, B, H], h_f and c_f [B, H] f32. h_steps [2, B, H] f32 is scratch.
-// Returns the CUDA error of the launch (0 on success; cudaErrorInvalidValue
-// for a shape the kernels do not take: at a hidden size other than 128, more
-// than 32 batch rows, a hidden size that is no multiple of 4 or over MAX_U
-// units per SM, an h [B', H] (B' the next power of two) that does not fit in
-// shared memory, or buffers off a 16-byte boundary).
+// -> outs [F, T, B, H], h_f and c_f [B, H] f32: F passes over xw, each from
+// the last one's final carry. h_steps [2, B, H] f32 is scratch. Returns the
+// CUDA error of the launch (0 on success; cudaErrorInvalidValue for a shape
+// the kernels do not take: at a hidden size other than 128, F other than 1,
+// more than 32 batch rows, a hidden size that is no multiple of 4 or over
+// MAX_U units per SM, an h [B', H] (B' the next power of two) that does not
+// fit in shared memory, or buffers off a 16-byte boundary; at 128, more than
+// 65,535 batch rows).
 extern "C" int lstm_forward(const void* xw, const void* w_hh, const void* b_hh,
                             const void* lens, const void* h0, const void* c0, void* outs,
-                            void* h_f, void* c_f, void* h_steps, int T, int B, int H,
+                            void* h_f, void* c_f, void* h_steps, int T, int B, int H, int F,
                             void* stream) {
-  if (T < 1 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  if (T < 1 || B < 1 || H < 1 || F < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (H == H128) {
-    cudaError_t err = cudaFuncSetAttribute(
-        lstm_h128_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM128);
-    if (err != cudaSuccess) return (int)err;
-    lstm_h128_kernel<<<B, G128, SMEM128, st>>>(
-        (const float*)xw, (const float*)w_hh, (const float*)b_hh, (const int*)lens,
-        (const float*)h0, (const float*)c0, (float*)outs, (float*)h_f, (float*)c_f, T, B);
-    return (int)cudaGetLastError();
+  if (H == lstm_cluster::H) {
+    if (B > 65535) return (int)cudaErrorInvalidValue;
+    return lstm_cluster::launch_clusters(
+        lstm_h128_cluster_kernel, B, st, (const float*)xw, (const float*)w_hh,
+        (const float*)b_hh, (const int*)lens, (const float*)h0, (const float*)c0, (float*)outs,
+        (float*)h_f, (float*)c_f, T, B, F);
   }
+  if (F != 1) return (int)cudaErrorInvalidValue;
   if (B > 32) return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);

@@ -3,8 +3,9 @@
 Each source compiles on its own into a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), at first use, into
 ``videonavqa_tpu_torch/_build/`` (git-ignored). The library name carries a
-hash of the source, so an edited kernel is rebuilt. ``build_all`` starts one
-nvcc per source, all at once. A failed build raises: nothing falls back.
+hash of the source and of the headers in ``csrc/``, so an edited kernel is
+rebuilt. ``build_all`` starts one nvcc per source, all at once. A failed
+build raises: nothing falls back.
 """
 
 from __future__ import annotations
@@ -40,8 +41,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha1()
+    for path in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _start(name: str):

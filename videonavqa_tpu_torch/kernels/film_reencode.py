@@ -34,6 +34,14 @@ def film_reencode_plain(xw, w_hh, b_hh, lens, num_frames):
     return torch.stack(finals)
 
 
+def check_shape(B, H):
+    """Raises unless the kernel takes B batch rows at hidden size H."""
+    if H != 128:
+        raise ValueError(f"film_reencode kernel needs hidden size 128, got {H}")
+    if not 1 <= B <= 65535:
+        raise ValueError(f"film_reencode kernel takes 1 to 65,535 batch rows, got {B}")
+
+
 def film_reencode(xw, w_hh, b_hh, lens, num_frames):
     """xw [Tq, B, 4H] f32, w_hh [4H, H], b_hh [4H] f32,
     lens [B] int32 -> finals [F, B, H] f32.
@@ -45,10 +53,7 @@ def film_reencode(xw, w_hh, b_hh, lens, num_frames):
     Tq, B, G = xw.shape
     H = G // 4
     dev = xw.device
-    if H != 128:
-        raise ValueError(f"film_reencode kernel needs hidden size 128, got {H}")
-    if not 1 <= B <= 65535:
-        raise ValueError(f"film_reencode kernel takes 1 to 65,535 batch rows, got {B}")
+    check_shape(B, H)
     _build.require(xw, "xw", torch.float32, device=dev)
     _build.require(w_hh, "w_hh", torch.float32, (G, H), dev)
     _build.require(b_hh, "b_hh", torch.float32, (G,), dev)

@@ -19,7 +19,8 @@ from __future__ import annotations
 import torch
 
 from videonavqa_tpu_torch.kernels.attn_tail import attn_tail, attn_tail_plain
-from videonavqa_tpu_torch.kernels.film_reencode import film_reencode_plain, film_reencode
+from videonavqa_tpu_torch.kernels.film_reencode import (
+    check_shape as check_reencode_shape, film_reencode, film_reencode_plain)
 from videonavqa_tpu_torch.kernels.int8_matmul import check_shape, matmul_int8_fused
 from videonavqa_tpu_torch.models.base import DTYPES, eval_only, register_model
 from videonavqa_tpu_torch.ops import initializers as init
@@ -181,11 +182,15 @@ def init_film_attn(gen, cfg, device):
 
 def apply_film_attn(params, state, batch, cfg, *, train=False, generator=None):
     """Eval forward: batch (see models/base.py) -> (logits [B, num_classes],
-    new_state). Kernels run where ``cfg.use_pallas_kernels`` asks for them."""
+    new_state). Kernels run where ``cfg.use_pallas_kernels`` asks for them;
+    off the CPU a re-encode shape its kernel does not take is refused here,
+    before any kernel runs."""
     eval_only(train)
     feats, v_lens = batch["v_features"], batch["v_len"]
     q, q_lens = batch["question"], batch["q_len"]
     B, T = feats.shape[:2]
+    if cfg.use_pallas_kernels and q.device.type != "cpu":
+        check_reencode_shape(B, cfg.hidden_size)
     frame_mask = length_mask(v_lens, T)
 
     films = film_values_over_frames(params, q, q_lens, T, cfg)

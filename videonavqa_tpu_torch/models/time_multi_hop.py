@@ -10,9 +10,10 @@ states:
              h = coefs^T p; film = LayerNorm(fc_attn_out(h))
 
 The decoder needs only the question, so it runs for all frames first: one
-LSTM pass per frame from a Python loop (the state is carried from frame to
-frame; one kernel launch per frame with ``cfg.use_pallas_kernels``), then the
-hops, which carry nothing across frames, once over the folded [T*B] rows.
+LSTM pass per frame, the state carried from frame to frame, all frames
+chained in one call (one kernel launch a forward with
+``cfg.use_pallas_kernels``), then the hops, which carry nothing across
+frames, once over the folded [T*B] rows.
 The conv trunk then runs once over the folded [B*T] batch.
 
 The softmax over words runs to the *batch's* max q_len: positions beyond an
@@ -65,14 +66,11 @@ def film_values_all_frames(params, q, q_lens, num_frames, cfg):
     xw = linear({"weight": enc["w_ih"], "bias": enc["b_ih"]}, emb).transpose(0, 1).contiguous()
     w_hh, b_hh = enc["w_hh"].float().contiguous(), enc["b_hh"].float().contiguous()
     lens = q_lens.to(torch.int32)
-    run = lstm_kernels.lstm if cfg.use_pallas_kernels else lstm_kernels.lstm_plain
-    h = c = torch.zeros((B, cfg.hidden_size), dtype=torch.float32, device=q.device)
-    states = []
-    for _ in range(num_frames):
-        outs, h, c = run(xw, w_hh, b_hh, lens, h, c)    # [Tq, B, H]
-        states.append(outs)
+    run = lstm_kernels.lstm_frames if cfg.use_pallas_kernels else lstm_kernels.lstm_frames_plain
+    zeros = torch.zeros((B, cfg.hidden_size), dtype=torch.float32, device=q.device)
+    states, _, _ = run(xw, w_hh, b_hh, lens, zeros, zeros, num_frames)   # [T, Tq, B, H]
     # frames folded into the rows: [T*B, Tq, H]
-    rnn_states = torch.stack(states).transpose(1, 2).reshape(num_frames * B, Tq, -1)
+    rnn_states = states.transpose(1, 2).reshape(num_frames * B, Tq, -1)
     ctx = layer_norm(params["encoder_norm"], last_valid(rnn_states, q_lens.repeat(num_frames)))
     word_mask = word_softmax_mask(q_lens, Tq)
     values = []

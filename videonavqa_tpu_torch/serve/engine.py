@@ -45,7 +45,9 @@ class InferenceEngine:
     Weights come from a JAX-package checkpoint (``checkpoint_path``) or from
     the reference init drawn from ``torch.Generator().manual_seed(seed)``.
     ``device`` defaults to the card; pass ``"cpu"`` to run the plain path.
-    The seed also starts the generator of a model that draws at eval.
+    A model that draws at eval draws each batch from a generator reset to
+    the seed, so a repeated request gets the same answer (the JAX daemon
+    runs every batch with ``PRNGKey(0)``).
 
     ``from_video`` is the inverse of the JAX daemon's ``--feature_cache``: a
     stem model is then served from raw uint8 frames through the frozen stem,
@@ -75,7 +77,8 @@ class InferenceEngine:
             self.stem = tuple(tree_to(t, self.device) for t in stem)
         self.visual_key = ("v_features" if self.spec.uses_stem and not from_video
                            else "video" if self.spec.needs_video else None)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.seed = seed
+        self.generator = torch.Generator(device=self.device)
         self.B = max_batch
         self.frame_buckets = tuple(frame_buckets)
         if checkpoint_path:
@@ -132,13 +135,14 @@ class InferenceEngine:
 
     def forward(self, batch, cfg=None, generator=None):
         """(logits, new_state) of one padded batch under ``cfg`` (the engine's
-        by default). In video mode a stem model's frames first become features."""
+        by default). In video mode a stem model's frames first become features.
+        Without ``generator`` the batch draws from the engine's, reset to its seed."""
         cfg = cfg or self.cfg
         if self.stem is not None:
             batch = dict(batch, v_features=self.features(batch, cfg))
             del batch["video"]
         return forward(self.spec, cfg, self.params, self.state, batch,
-                       generator or self.generator)
+                       generator or self.generator.manual_seed(self.seed))
 
     def run_batch(self, items):
         """[n, num_classes] f32 probabilities of ``items`` (padding rows dropped)."""
