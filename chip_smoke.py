@@ -16,7 +16,11 @@ kernel's plain version):
              (``library_ms``, a yardstick the port never calls): the
              re-encode also against 35 chained cuDNN LSTM calls, the LSTM
              kernel at time_multi_hop's chained launch (35 passes) and at
-             single passes from non-zero (h0, c0); then the
+             single passes from non-zero (h0, c0), the wide one (hidden 512
+             and 1536) up to 64 batch rows; attn_tail also at attention
+             sizes it pads (64, 200), 100 frames and 64 batch rows; the two
+             hidden-128 kernels on the shared chain (film_reencode, lstm)
+             against recorded digests of their outputs' bits; then the
              int8 row gate: both routes of a trunk block's 1x1 conv (the
              fused kernel; conv2d_int8_prequant, ReLU and the 3x3 conv's
              quantize) timed at the served folded row counts and above
@@ -43,7 +47,8 @@ kernel's plain version):
              chained; and for lstm, v_only_cnn2d_lstm,
              concat2d and mac at the ModelConfig defaults (hidden 128,
              mac_dim 512, 12 MAC steps) at batch 32 and batch 1, the video
-             models from seeded uint8 frames [35, 160, 208, 3].
+             models from seeded uint8 frames [35, 160, 208, 3]; and mac at
+             batch 64 (its wide LSTMs in two launches of 32 rows a pass).
 
 Run one kernel's check alone (it builds only that source), e.g.
 ``python3 -c "import torch, chip_smoke as cs; cs.check_vgg_block1(torch.device('cuda'))"``.
@@ -55,6 +60,7 @@ the line before it holds the per-kernel JSON record.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import subprocess
@@ -269,42 +275,68 @@ def check_film_reencode(dev):
     return rows
 
 
+# (B, T, A) of the attn_tail check beyond the timed served rows: attention
+# sizes the kernel pads (64 to 128, 200 to 256), more frames than two warp
+# passes (T 100), and more batch rows than one wave of clusters (B 64);
+# check_attn_tail adds the most frames the kernel holds at 128 (B 1).
+ATTN_EXTRA = ((4, 35, 64), (4, 35, 200), (4, 100, 128), (64, 35, 128))
+
+
 def check_attn_tail(dev):
-    """B in {1, 32}, T in {35, 20} (n_phantom 0 and 15), A 128."""
+    """B in {1, 32}, T in {35, 20} (n_phantom 0 and 15), A 128, timed; then
+    ATTN_EXTRA and the most frames the kernel holds at A 128 (n_phantom
+    max(0, 35 - T)), each within RECURRENCE_ATOL; one frame more is refused."""
     gen = torch.Generator().manual_seed(2)
-    A, S = 128, 35
-    params = {"fc_hidden_attn": init.reference_linear(gen, 1, A),
-              "lstm_attn": init.reference_lstm(gen, A, A)}
-    params = {k: {n: t.to(dev) for n, t in v.items()} for k, v in params.items()}
-    rows = {}
-    for B in (1, 32):
-        for T in (35, 20):
-            v_lens = torch.randint(1, T + 1, (B,), generator=gen, dtype=torch.int32)
-            v_lens[0] = T
-            v_lens = v_lens.to(dev)
-            fmask = length_mask(v_lens, T)
-            feats = (torch.randn((B, T, A), generator=gen).to(dev)) * fmask[..., None]
-            scores = torch.where(fmask, torch.randn((B, T), generator=gen).to(dev), 0.0)
-            mask = attn_frame_mask(v_lens, T)
-            args = (params, feats, scores, mask, S, float(S - T))
-            got = attn_mod.attn_tail(*args)
-            want = attn_mod.attn_tail_plain(*args)
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            log(f"  attn_tail B={B} T={T}: max_abs_err {err:.3e} (atol {RECURRENCE_ATOL})")
-            if not err <= RECURRENCE_ATOL:
-                raise AssertionError(f"attn_tail B={B} T={T} disagrees: {err}")
-            nbytes = 4 * (B * T * A + 2 * B * T + A + 1 + 2 * 4 * A * A + 4 * A + B * S * A)
-            ops = B * S * (2 * A + 6 * T + 2 * T * A + 2 * 2 * 4 * A * A + 12 * A)
-            b_ms, b_by = bound_ms(nbytes, ops, F32_FLOPS)
-            rows[(B, T)] = dict(
-                max_abs_err=err, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                **timings(lambda: attn_mod.attn_tail(*args),
-                          lambda: attn_mod.attn_tail_plain(*args), "attn_tail_kernel", 20, 3))
-            r = rows[(B, T)]
-            log(f"  attn_tail B={B} T={T}: {r['ms']:.4f} ms (wrapper {r['wrapper_ms']:.4f}),"
-                f" plain {r['plain_ms']:.3f} ms,"
-                f" bound {b_ms:.5f} ms by {b_by}; the serial chain is {S} dependent steps")
+    S = 35
+    most = _build.function("attn_tail", "attn_tail_max_frames", [ctypes.c_int])(128)
+    rows, params_of = {}, {}
+    for B, T, A in ([(B, T, 128) for B in (1, 32) for T in (35, 20)] + list(ATTN_EXTRA)
+                    + [(1, most, 128)]):
+        if A not in params_of:
+            params = {"fc_hidden_attn": init.reference_linear(gen, 1, A),
+                      "lstm_attn": init.reference_lstm(gen, A, A)}
+            params_of[A] = {k: {n: t.to(dev) for n, t in v.items()} for k, v in params.items()}
+        params = params_of[A]
+        v_lens = torch.randint(1, T + 1, (B,), generator=gen, dtype=torch.int32)
+        v_lens[0] = T
+        v_lens = v_lens.to(dev)
+        fmask = length_mask(v_lens, T)
+        feats = (torch.randn((B, T, A), generator=gen).to(dev)) * fmask[..., None]
+        scores = torch.where(fmask, torch.randn((B, T), generator=gen).to(dev), 0.0)
+        mask = attn_frame_mask(v_lens, T)
+        args = (params, feats, scores, mask, S, float(max(0, S - T)))
+        got = attn_mod.attn_tail(*args)
+        want = attn_mod.attn_tail_plain(*args)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        log(f"  attn_tail B={B} T={T} A={A}: max_abs_err {err:.3e} (atol {RECURRENCE_ATOL})")
+        if not err <= RECURRENCE_ATOL:
+            raise AssertionError(f"attn_tail B={B} T={T} A={A} disagrees: {err}")
+        if A != 128 or (B, T) not in ((1, 35), (1, 20), (32, 35), (32, 20)):
+            rows[(B, T, A)] = dict(max_abs_err=err)
+            continue
+        # what the function needs: v cancels in the softmax, so the weights,
+        # the context and its W_ih product once per row, the W_hh product
+        # and the cell once per step; w_hid and b_hid are never read
+        nbytes = 4 * (B * T * A + 2 * B * T + 2 * 4 * A * A + 4 * A + B * S * A)
+        ops = B * (6 * T + 2 * T * A + 2 * 4 * A * A + 4 * A + S * (2 * 4 * A * A + 12 * A))
+        b_ms, b_by = bound_ms(nbytes, ops, F32_FLOPS)
+        rows[(B, T)] = dict(
+            max_abs_err=err, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            **timings(lambda: attn_mod.attn_tail(*args),
+                      lambda: attn_mod.attn_tail_plain(*args), "attn_tail_kernel", 20, 3))
+        r = rows[(B, T)]
+        log(f"  attn_tail B={B} T={T}: {r['ms']:.4f} ms (wrapper {r['wrapper_ms']:.4f}),"
+            f" plain {r['plain_ms']:.3f} ms,"
+            f" bound {b_ms:.5f} ms by {b_by}; the serial chain is {S} dependent steps")
+    T = most + 1
+    try:
+        attn_mod.attn_tail(params_of[128], torch.zeros((1, T, 128), device=dev),
+                           torch.zeros((1, T), device=dev), torch.zeros((1, T), device=dev), S, 0.0)
+    except ValueError as err:
+        log(f"  attn_tail at {T} frames, A=128: refused before any launch ({err})")
+    else:
+        raise AssertionError(f"attn_tail took {T} frames, past the {most} it holds")
     return rows
 
 
@@ -322,13 +354,19 @@ LSTM_SHAPES = (
     (1, 1, 56, 128),
     (1, 32, 56, 512),    # mac's biLSTM, forward and backward
     (1, 1, 56, 512),
+    (1, 64, 56, 512),    # mac served at batch 64: two launches of 32 rows
     (3, 4, 20, 512),     # a chain at a hidden size other than 128: a launch a pass
     (1, 32, 35, 1536),   # mac's tail LSTM
     (1, 1, 35, 1536),
+    (1, 33, 35, 1536),   # one batch row past a launch's 32
 )
 LSTM_MAIN = (35, 16, 56, 128)   # the shape on the JSON line: time_multi_hop's
 LSTM_TIMED = (LSTM_MAIN, (1, 32, 56, 128), (1, 16, 56, 128), (1, 32, 56, 512),
               (1, 32, 35, 1536))
+# Wide shapes of LSTM_SHAPES whose times check_lstm logs besides (not on the
+# JSON line): mac's batch 1, and batches past 32 rows, which the wrapper runs
+# as launches of 32 rows (its time covers every launch of the pass).
+LSTM_WIDE_LOGGED = ((1, 1, 56, 512), (1, 64, 56, 512), (1, 1, 35, 1536), (1, 33, 35, 1536))
 
 
 def check_lstm(dev):
@@ -365,6 +403,11 @@ def check_lstm(dev):
         if not err <= RECURRENCE_ATOL or stray != 0.0:
             raise AssertionError(f"lstm {tag} disagrees: {err}, {stray}")
         rows[(F, B, T, H)] = row = dict(max_abs_err=err)
+        if (F, B, T, H) in LSTM_WIDE_LOGGED:
+            run = lambda: lstm_mod.lstm_frames(*args)
+            log(f"  lstm {tag}: {kernel_device_ms(run, 'lstm_wide_kernel'):.4f} ms a launch,"
+                f" {-(-B // lstm_mod.MAX_BATCH_WIDE)} launches a pass, wrapper"
+                f" {time_ms(run, 10):.4f} ms")
         if (F, B, T, H) not in LSTM_TIMED:
             continue
         steps = F * int(lens.sum())
@@ -396,6 +439,82 @@ def check_lstm(dev):
             f" bound {b_ms:.5f} ms by {b_by}; the serial chain is F x max len ="
             f" {F * int(lens.max())} dependent steps, {steps} row-steps in all")
     return rows
+
+
+# Seeded runs of the two kernels on the shared hidden-128 chain
+# (lstm_cluster.cuh), whose bits this version of the kernels keeps: sha256 of
+# their outputs' bytes, from numpy-seeded inputs (stable across library
+# versions). film_reencode (B, Tq, F) and lstm (F, B, T) at hidden 128.
+BITS_REENCODE = ((32, 56, 35), (1, 56, 35))
+BITS_LSTM = ((35, 16, 56), (1, 32, 35))
+# Recorded on an NVIDIA H100 80GB HBM3 (700 W) from the kernels as they were
+# before attn_tail was redesigned, and equal to them after.
+BITS_DIGESTS = {
+    "film_reencode B=32 Tq=56 F=35":
+        "ef58fa7ac668cedeee74d77319278899769f51e7ce5e6f00e08d1f9e25dc574e",
+    "film_reencode B=1 Tq=56 F=35":
+        "965946e6e4d7a42b897b2add586cf63e17ba47ca0cda863035240237282844e2",
+    "lstm F=35 B=16 T=56 H=128":
+        "6143189f10e0dd2896a41610703cc06f7f4b6b9f37e53fafe7e73a8ca9324fa6",
+    "lstm F=1 B=32 T=35 H=128":
+        "72d385843cff15faaea3b0070e98f57f39daf592273e251bbc43e95d3f5dba7a",
+}
+
+
+def bit_digests(dev):
+    """{name: sha256 hex} of film_reencode's finals and lstm's (outs, h_f,
+    c_f) at BITS_REENCODE and BITS_LSTM, hidden 128, ragged lengths."""
+    import hashlib
+
+    import numpy as np
+
+    H = 128
+    rng = np.random.default_rng(70)
+    k = 1.0 / np.sqrt(H)
+
+    def arr(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+
+    def weights():
+        w = rng.uniform(-k, k, (4 * H, H)).astype(np.float32)
+        b = rng.uniform(-k, k, (4 * H,)).astype(np.float32)
+        return torch.from_numpy(w).to(dev), torch.from_numpy(b).to(dev)
+
+    def lens(B, T):
+        n = rng.integers(1, T + 1, B).astype(np.int32)
+        n[0] = T
+        return torch.from_numpy(n).to(dev)
+
+    def digest(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    out = {}
+    for B, Tq, F in BITS_REENCODE:
+        w_hh, b_hh = weights()
+        xw, q_len = arr(Tq, B, 4 * H), lens(B, Tq)
+        out[f"film_reencode B={B} Tq={Tq} F={F}"] = digest(
+            reenc_mod.film_reencode(xw, w_hh, b_hh, q_len, F))
+    for F, B, T in BITS_LSTM:
+        w_hh, b_hh = weights()
+        xw, n = arr(T, B, 4 * H), lens(B, T)
+        h0, c0 = arr(B, H, scale=0.5), arr(B, H, scale=0.5)
+        out[f"lstm F={F} B={B} T={T} H={H}"] = digest(
+            *lstm_mod.lstm_frames(xw, w_hh, b_hh, n, h0, c0, F))
+    torch.cuda.synchronize()
+    return out
+
+
+def check_bits_unchanged(dev):
+    """The hidden-128 kernels give the bits recorded in BITS_DIGESTS."""
+    got = bit_digests(dev)
+    for name, d in got.items():
+        want = BITS_DIGESTS.get(name)
+        log(f"  {name}: sha256 {d} ({'as recorded' if d == want else f'recorded {want}'})")
+        if d != want:
+            raise AssertionError(f"{name}: the outputs' bits moved")
 
 
 def _bf16_ulp(v):
@@ -946,6 +1065,27 @@ def serve_zoo_model(dev, model, feats, lstm_per_forward, tally):
     return launches, ms, worst
 
 
+def serve_mac_batch64(dev, feats, tally):
+    """mac at the ModelConfig defaults served at batch 64 through the engine:
+    its biLSTM (hidden 512) and tail LSTM (1536) each run as two launches of
+    32 batch rows. Counted, held against the plain path, timed."""
+    cfg = ModelConfig(model="mac", use_pallas_kernels=True)
+    eng = InferenceEngine(cfg, seed=0, max_batch=64, device=dev)
+    its = feature_items(feats, torch.Generator().manual_seed(13), 0, 64, 35)
+    its[0] = (its[0][0], 35, its[0][2])
+    eng.run_batch(its)   # warm-up
+    reset_counters()
+    probs = eng.run_batch(its)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    log(f"  mac launches at batch 64: {launches}")
+    expect_launches("mac", launches, {"lstm": 6})
+    check_probs(probs, 64)
+    worst = compare_paths(eng, its)
+    ms = {"mac batch 64": time_paths("mac batch 64", eng, its, 2, tally, top=5)}
+    return launches, ms, worst
+
+
 def serve(dev):
     """Every served path in turn -> (launches summed over the paths, ms, worst
     |dprob|, each port kernel's device ms summed over the profiled batches:
@@ -962,6 +1102,7 @@ def serve(dev):
              lambda: serve_time_multi_hop(dev, feats, tally)]
     paths += [lambda m=m, n=n: serve_zoo_model(dev, m, feats, n, tally)
               for m, n in (("lstm", 1), ("v_only_cnn2d_lstm", 1), ("concat2d", 2), ("mac", 3))]
+    paths.append(lambda: serve_mac_batch64(dev, feats, tally))
     for path in paths:
         launches, path_ms, path_worst = path()
         for name, n in launches.items():
@@ -999,6 +1140,7 @@ def main():
     log("phase kernels")
     reenc = check_film_reencode(dev)
     attn = check_attn_tail(dev)
+    check_bits_unchanged(dev)
     int8 = check_int8_matmul(dev)
     gate = sweep_int8_gate(dev)
     lstm = check_lstm(dev)

@@ -31,6 +31,7 @@ from videonavqa_tpu_torch.kernels import vgg_block1 as block1_mod
 from videonavqa_tpu_torch.ops import initializers as tinit
 from videonavqa_tpu_torch.ops import lstm as ops_lstm
 from videonavqa_tpu_torch.ops.linear import linear
+from videonavqa_tpu_torch.ops.masking import attn_frame_mask as attn_frame_mask_t
 
 RECURRENCE_ATOL = 1e-5
 
@@ -264,12 +265,143 @@ def test_wrappers_refuse_non_cuda_non_cpu_tensors():
 
 @pytest.mark.parametrize("B,H", [(33, 64), (4, 6)])
 def test_lstm_kernel_refuses_shapes_it_does_not_take(B, H):
-    """Off the CPU, a hidden size other than 128 takes at most 32 batch rows
-    and a multiple of 4: refused with an error, not handed to the plain version."""
+    """Off the CPU, a hidden size other than 128 must be a multiple of 4 (the
+    wide kernel moves h and W_hh 16 bytes at a time): refused with an error,
+    not handed to the plain version. Any batch passes the shape checks (the
+    wrapper runs a batch wider than 32 rows as launches of 32 rows): B 33 at
+    hidden 64 reaches the input checks, which on meta tensors raise only for
+    the device."""
     m = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device="meta")
-    with pytest.raises(ValueError, match="hidden size other than 128"):
+    match = "CUDA" if H % 4 == 0 else "hidden size other than 128"
+    with pytest.raises(ValueError, match=match):
         lstm_mod.lstm(m(5, B, 4 * H), m(4 * H, H), m(4 * H), m(B, dtype=torch.int32),
                       m(B, H), m(B, H))
+
+
+def test_lstm_plain_matches_pallas_past_a_warp_of_batch_rows():
+    """The plain version (the wide kernel's reference on the card) at 33
+    batch rows and hidden 64, against lstm_pallas in interpret mode, from
+    non-zero (h0, c0): the wide path takes any batch, as the Pallas one."""
+    B, T, E, H = 33, 6, 8, 64
+    cell = jinit.torch_default_lstm(jax.random.PRNGKey(9), E, H)
+    r = np.random.default_rng(11)
+    x = r.standard_normal((B, T, E)).astype(np.float32)
+    lens = r.integers(1, T + 1, B).astype(np.int32)
+    lens[0], lens[1] = T, 1
+    h0, c0 = (r.standard_normal((B, H)).astype(np.float32) for _ in range(2))
+    want_outs, (want_h, want_c) = lstm_pallas(cell, jnp.asarray(x), jnp.asarray(lens),
+                                              jnp.asarray(h0), jnp.asarray(c0), interpret=True)
+    tcell = _t(cell)
+    xw = linear({"weight": tcell["w_ih"], "bias": tcell["b_ih"]}, _t(x)).transpose(0, 1)
+    outs, h, c = lstm_mod.lstm_plain(xw.contiguous(), tcell["w_hh"], tcell["b_hh"], _t(lens),
+                                     _t(h0), _t(c0))
+    np.testing.assert_allclose(outs.transpose(0, 1).numpy(), np.asarray(want_outs),
+                               atol=RECURRENCE_ATOL)
+    np.testing.assert_allclose(h.numpy(), np.asarray(want_h), atol=RECURRENCE_ATOL)
+    np.testing.assert_allclose(c.numpy(), np.asarray(want_c), atol=RECURRENCE_ATOL)
+
+
+def test_attn_tail_plain_matches_pallas_at_any_width_and_frame_count():
+    """The plain version (the kernel's reference on the card) at an attention
+    size that is no multiple of 32 (40, which the kernel pads to 128) and more
+    frames than two warp passes (70), against attn_tail_pallas in interpret
+    mode."""
+    B, T, A, S = 2, 70, 40, 5
+    k1, k2 = jax.random.split(jax.random.PRNGKey(4))
+    params = {"fc_hidden_attn": jinit.reference_linear(k1, 1, A),
+              "lstm_attn": jinit.reference_lstm(k2, A, A)}
+    r = np.random.default_rng(12)
+    v_lens = np.array([T, 33], np.int32)
+    valid = np.arange(T)[None, :] < v_lens[:, None]
+    feats = (r.standard_normal((B, T, A)) * valid[..., None]).astype(np.float32)
+    scores = np.where(valid, r.standard_normal((B, T)), 0.0).astype(np.float32)
+    mask = np.asarray(attn_frame_mask(jnp.asarray(v_lens), T))
+    want = attn_tail_pallas(params, jnp.asarray(feats), jnp.asarray(scores),
+                            jnp.asarray(mask), num_steps=S, n_phantom=0.0, interpret=True)
+    got = attn_mod.attn_tail_plain(_t(params), _t(feats), _t(scores), _t(mask), S, 0.0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=RECURRENCE_ATOL)
+
+
+@pytest.mark.parametrize("T,n_phantom", [(7, 0.0), (4, 3.0)])
+def test_attn_tail_weights_do_not_depend_on_the_step(T, n_phantom):
+    """What the kernel computes: the rank-1 projection v shifts every frame's
+    logit and the phantom frames' alike, so the attention weights are
+    exp(s_t - M) / (sum_t exp(s_t - M) + n_phantom exp(-M)), s = scores +
+    mask, M = max(max_t s_t, 0), at every step; the context and the input
+    gates are formed once, and the steps are LSTMCells over that constant
+    input. In torch this matches the plain version (which recomputes the
+    softmax from v every step) within RECURRENCE_ATOL, masked frames
+    (-2^31) and phantom frames included."""
+    gen = torch.Generator().manual_seed(T)
+    B, A, S = 3, 8, 7
+    params = {"fc_hidden_attn": tinit.reference_linear(gen, 1, A),
+              "lstm_attn": tinit.reference_lstm(gen, A, A)}
+    v_lens = torch.tensor([T, 2, 3], dtype=torch.int32)
+    fmask = torch.arange(T)[None, :] < v_lens[:, None]
+    feats = torch.randn((B, T, A), generator=gen) * fmask[..., None]
+    scores = torch.where(fmask, 3 * torch.randn((B, T), generator=gen), 0.0)
+    mask = attn_frame_mask_t(v_lens, T)
+    want = attn_mod.attn_tail_plain(params, feats, scores, mask, S, n_phantom)
+    s_t = scores + mask
+    m = torch.clamp(s_t.amax(dim=1, keepdim=True), min=0.0)
+    e = torch.exp(s_t - m)
+    coef = e / (e.sum(dim=1, keepdim=True) + n_phantom * torch.exp(-m))
+    ctx = torch.einsum("bt,bta->ba", coef, feats)
+    h = c = torch.zeros((B, A))
+    got = []
+    for _ in range(S):
+        h, c = ops_lstm.lstm_cell(params["lstm_attn"], ctx, h, c)
+        got.append(h)
+    np.testing.assert_allclose(torch.stack(got, dim=1).numpy(), want.numpy(),
+                               atol=RECURRENCE_ATOL)
+
+
+@pytest.mark.parametrize("A", [40, 200])
+def test_attn_tail_padding_leaves_the_output_unchanged(A):
+    """The wrapper zero-pads attention size A to the kernel's 128 or 256
+    (``pad_inputs``). The padded parameters run through the plain version
+    give the unpadded output: the padded units stay exactly 0 at every step
+    (their weights, biases and feature columns are zero, as the w_hid
+    entries given here), and
+    the real ones agree within 1e-6 (the padding adds exact zeros; only the
+    CPU matmul's order over the longer rows differs, measured 1.5e-7)."""
+    gen = torch.Generator().manual_seed(A)
+    params = {"fc_hidden_attn": tinit.reference_linear(gen, 1, A),
+              "lstm_attn": tinit.reference_lstm(gen, A, A)}
+    B, T, S = 3, 7, 9
+    feats = torch.randn((B, T, A), generator=gen)
+    scores = torch.randn((B, T), generator=gen)
+    mask = torch.zeros((B, T))
+    ap = attn_mod.padded_size(A)
+    assert ap == (128 if A <= 128 else 256)
+    w_ih, w_hh, bias, padded = attn_mod.pad_inputs(params, feats, ap)
+    assert padded.shape == (B, T, ap) and w_ih.shape == (4 * ap, ap)
+    w_hid = torch.zeros((1, ap))
+    w_hid[:, :A] = params["fc_hidden_attn"]["weight"]
+    pp = {"fc_hidden_attn": {"weight": w_hid, "bias": params["fc_hidden_attn"]["bias"]},
+          "lstm_attn": {"w_ih": w_ih, "w_hh": w_hh, "b_ih": bias,
+                        "b_hh": torch.zeros_like(bias)}}
+    got = attn_mod.attn_tail_plain(pp, padded, scores, mask, S, 2.0)
+    want = attn_mod.attn_tail_plain(params, feats, scores, mask, S, 2.0)
+    assert float(got[..., A:].abs().max()) == 0.0
+    np.testing.assert_allclose(got[..., :A].numpy(), want.numpy(), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("A,T,error", [(64, 35, "CUDA"), (200, 100, "CUDA"),
+                                       (257, 35, "at most 256"), (128, 0, "bad shape")])
+def test_attn_tail_kernel_takes_any_size_it_can_hold(A, T, error):
+    """Off the CPU the kernel takes any attention size up to 256 (padded to
+    128 or 256) and any frame count its shared memory holds (its library
+    says how many; chip_smoke.py checks the limit on the card): on meta
+    tensors such a shape reaches the input checks, which raise only for the
+    device; a larger attention size or no frame is refused before any
+    launch."""
+    m = lambda *shape: torch.empty(shape, device="meta")
+    params = {"fc_hidden_attn": {"weight": m(1, A), "bias": m(1)},
+              "lstm_attn": {"w_ih": m(4 * A, A), "w_hh": m(4 * A, A), "b_ih": m(4 * A),
+                            "b_hh": m(4 * A)}}
+    with pytest.raises(ValueError, match=error):
+        attn_mod.attn_tail(params, m(2, T, A), m(2, T), m(2, T), 35, 0.0)
 
 
 def test_lstm_frames_refuses_shapes_it_does_not_take():

@@ -10,6 +10,14 @@ to atol 1e-4 (the JAX package's own wiring tolerance), on the full frame
 axis and on a bucket-trimmed one; time_multi_hop with the calibrated int8
 trunk to atol 2e-3 with equal argmax (one int8 step at a rounding boundary).
 The engine is held against JAX apply + softmax on the same padded batch.
+
+time_multi_hop also runs in bf16, the served dtype, against JAX run op by op
+(inside one jitted graph XLA's simplifier may drop bf16 round trips): its
+bf16 tail features (the pooled input of the output layer) lie within one bf16
+ulp of the largest with at least 99% bit-equal (measured: 0 ulps, 100% equal
+over four seeds; casting the FiLM affine in f32 instead of the conv output's
+dtype leaves 70-77% equal), and its logits agree to atol 1e-5 (measured at
+most 9.5e-7; with the affine in f32, ~1e-2).
 """
 
 import dataclasses
@@ -24,10 +32,12 @@ import torch
 
 from videonavqa_tpu.models import ModelConfig as JaxConfig
 from videonavqa_tpu.models import get_model as jax_get_model
+from videonavqa_tpu.models import time_multi_hop as jax_tmh
 from videonavqa_tpu.utils.checkpoint import flatten_tree
 from videonavqa_tpu_torch.kernels import lstm as lstm_mod
 from videonavqa_tpu_torch.models import ModelConfig, get_model
 from videonavqa_tpu_torch.models import q_only_lstm
+from videonavqa_tpu_torch.models import time_multi_hop as tmh_mod
 from videonavqa_tpu_torch.serve.engine import InferenceEngine
 from videonavqa_tpu_torch.train.step import forward
 from videonavqa_tpu_torch.utils.checkpoint import params_from_jax
@@ -269,3 +279,34 @@ def test_engine_serves_a_question_only_model(tmp_path):
     want = torch.softmax(q_only_lstm.apply_with_state(eng.params, batch, eng.cfg, h0, c0), -1)
     np.testing.assert_allclose(got, want[:2].numpy(), atol=1e-6)
     np.testing.assert_array_equal(eng.run_batch(items), got)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_time_multi_hop_bf16_matches_jax(seed, monkeypatch):
+    """time_multi_hop in bf16 (the module note gives the bounds): the bf16
+    features its output layer takes, caught on both sides, and the logits."""
+    extra = (("compute_dtype", "bfloat16"), ("use_pallas_kernels", False))
+    jcfg, jspec, jp, js, cfg, params, state = _setup("time_multi_hop", extra)
+    seen = {}
+
+    def spy(mod, key):
+        inner = mod.linear_chw
+
+        def capture(p, x):
+            seen[key] = x
+            return inner(p, x)
+        monkeypatch.setattr(mod, "linear_chw", capture)
+
+    spy(jax_tmh, "jax")
+    spy(tmh_mod, "port")
+    b = _batch(get_model("time_multi_hop"), (6, 4)[seed], seed=seed)
+    want, _ = jspec.apply(jp, js, {k: jnp.asarray(v) for k, v in b.items()}, jcfg, train=False,
+                          rng=jax.random.PRNGKey(1))
+    with torch.inference_mode():
+        got, _ = forward(get_model("time_multi_hop"), cfg, params, state, _torch(b))
+    tail, want_tail = seen["port"].float().numpy(), np.asarray(seen["jax"].astype(jnp.float32))
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want_tail).max())) - 7)
+    np.testing.assert_allclose(tail, want_tail, rtol=0, atol=ulp)
+    assert float((tail == want_tail).mean()) >= 0.99
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    assert seen["port"].dtype == torch.bfloat16 and seen["jax"].dtype == jnp.bfloat16

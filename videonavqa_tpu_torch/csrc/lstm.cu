@@ -41,7 +41,14 @@
 //     loop runs to max(len), not T. Per step and SM the shared memory
 //     delivers U x B x H x 4 bytes of h, four FMAs for each 4 bytes: the FMA
 //     rate and the shared-memory rate bound a step together, and the copy of
-//     h into every block and the grid barrier come on top.
+//     h into every block and the grid barrier come on top. A launch takes at
+//     most 32 batch rows; the wrapper runs a wider batch as launches of 32.
+//     Why not more of Hopper: one 512-thread block per SM holding W_hh on
+//     chip, with register tiles, cp.async-pipelined h and an arrival counter
+//     in place of grid.sync, was measured against this kernel on an H100 and
+//     was no faster at batch 32 and about 2x slower at batch 1; its step,
+//     like this one's, is bound by every SM reading all of h from L2 and by
+//     the step barrier.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>

@@ -3,8 +3,11 @@
 Replaces ``videonavqa_tpu/kernels/attn_tail_pallas.py`` (attn_tail_pallas):
 ``num_steps`` (35) steps of phantom-corrected masked softmax over frames,
 context reduction and an LSTMCell update. The serial chain of 35 steps, not
-bytes, bounds it on an H100; the source note in the .cu file says how the
-design keeps each step on chip.
+bytes, bounds it on an H100. The attention weights do not depend on the
+step (the rank-1 projection v shifts every logit and the phantom frames'
+alike, so it cancels in the softmax): the kernel forms the context and the
+input gates once per launch, and a cluster of 8 SMs per batch row runs the
+35 LSTMCell steps (the source note in the .cu file).
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from videonavqa_tpu_torch.ops.lstm import lstm_cell
 
 launches = 0
 
-_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
              + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -42,12 +45,53 @@ def attn_tail_plain(params, feats, scores, mask, num_steps, n_phantom):
     return torch.stack(hs, dim=1)
 
 
-def _interleave_gates(w):
-    """[4A, K] gate-major rows (i, f, g, o) -> [K, 4A] with column 4u + g =
-    row g*A + u: the layout in which neighbouring kernel threads read
-    neighbouring addresses."""
-    G, K = w.shape
-    return w.float().reshape(4, G // 4, K).permute(2, 1, 0).reshape(K, G).contiguous()
+# The hidden sizes the kernel is built for; a smaller attention size is
+# zero-padded up to the next one.
+KERNEL_SIZES = (128, 256)
+
+
+def padded_size(A):
+    """The hidden size the kernel runs for attention size A."""
+    for size in KERNEL_SIZES:
+        if A <= size:
+            return size
+    raise ValueError(f"attn_tail kernel takes an attention size of at most"
+                     f" {KERNEL_SIZES[-1]}, got {A}")
+
+
+def check_frames(ap, T):
+    """Raise ValueError for more frames than the kernel's shared memory holds
+    at hidden size ``ap`` (its library says how many)."""
+    size = _build.function("attn_tail", "attn_tail_max_frames", [ctypes.c_int])
+    most = size(ap)
+    if T > most:
+        raise ValueError(f"attn_tail kernel takes at most {most} frames at hidden size {ap},"
+                         f" got {T}")
+
+
+def pad_inputs(params, feats, ap):
+    """(w_ih [4ap, ap], w_hh [4ap, ap], bias [4ap] = b_ih + b_hh, feats
+    [B, T, ap]) f32, zero-padded from attention size A to ``ap``: gate g of
+    unit u is row g*ap + u; padded units and columns are zero, so a padded
+    unit's c and h stay exactly 0 and the real units see the same sums."""
+    B, T, A = feats.shape
+    cell = params["lstm_attn"]
+    bias = (cell["b_ih"].float() + cell["b_hh"].float()).contiguous()
+    if A == ap:   # nothing to pad (the served size)
+        return (cell["w_ih"].float().contiguous(), cell["w_hh"].float().contiguous(), bias,
+                feats.float().contiguous())
+
+    def pad(x, shape, index):
+        out = x.new_zeros(shape, dtype=torch.float32)
+        out[index] = x.float()
+        return out
+
+    def rows(w):  # [4A, A] -> [4ap, ap]
+        return pad(w.reshape(4, A, A), (4, ap, ap), (slice(None), slice(0, A), slice(0, A)))
+
+    return (rows(cell["w_ih"]).reshape(4 * ap, ap), rows(cell["w_hh"]).reshape(4 * ap, ap),
+            pad(bias.reshape(4, A), (4, ap), (slice(None), slice(0, A))).reshape(-1),
+            pad(feats, (B, T, ap), (Ellipsis, slice(0, A))))
 
 
 def attn_tail(params, all_features, scores, mask, num_steps, n_phantom):
@@ -55,33 +99,30 @@ def attn_tail(params, all_features, scores, mask, num_steps, n_phantom):
 
     params: fc_hidden_attn {'weight' [1, A], 'bias' [1]} and lstm_attn
     {'w_ih' [4A, A], 'w_hh' [4A, A], 'b_ih', 'b_hh' [4A]}. CPU tensors take
-    the plain version; CUDA tensors launch the kernel."""
+    the plain version; CUDA tensors launch the kernel, which runs A
+    zero-padded to 128 or 256 (A up to 256, any T its shared memory holds:
+    28,862 frames at 128, 28,670 at 256)."""
     global launches
     if all_features.device.type == "cpu":
         return attn_tail_plain(params, all_features, scores, mask, num_steps, n_phantom)
     B, T, A = all_features.shape
-    if A != 128 or not 1 <= T <= 64:
-        raise ValueError(f"attn_tail kernel needs A == 128 and 1 <= T <= 64, got A={A}, T={T}")
+    if A < 1 or T < 1 or num_steps < 1:
+        raise ValueError(f"attn_tail kernel: bad shape A={A}, T={T} or num_steps {num_steps}")
     dev = all_features.device
-    cell = params["lstm_attn"]
-    feats = all_features.float().contiguous()
+    ap = padded_size(A)
+    w_ih, w_hh, bias, feats = pad_inputs(params, all_features, ap)
     scores = scores.float().contiguous()
     mask = mask.float().contiguous()
-    w_hid = params["fc_hidden_attn"]["weight"].float().reshape(A).contiguous()
-    b_hid = params["fc_hidden_attn"]["bias"].float().reshape(1).contiguous()
-    w_ih_t = _interleave_gates(cell["w_ih"])
-    w_hh_t = _interleave_gates(cell["w_hh"])
-    bias = (cell["b_ih"].float() + cell["b_hh"].float()).reshape(4, A).t().reshape(-1).contiguous()
-    for name, t, shape in (("feats", feats, (B, T, A)), ("scores", scores, (B, T)),
-                           ("mask", mask, (B, T)), ("w_hid", w_hid, (A,)),
-                           ("b_hid", b_hid, (1,)), ("w_ih", w_ih_t, (A, 4 * A)),
-                           ("w_hh", w_hh_t, (A, 4 * A)), ("bias", bias, (4 * A,))):
+    for name, t, shape in (("feats", feats, (B, T, ap)), ("scores", scores, (B, T)),
+                           ("mask", mask, (B, T)), ("w_ih", w_ih, (4 * ap, ap)),
+                           ("w_hh", w_hh, (4 * ap, ap)), ("bias", bias, (4 * ap,))):
         _build.require(t, name, torch.float32, shape, dev)
-    hs = torch.empty((B, num_steps, A), dtype=torch.float32, device=dev)
+    check_frames(ap, T)
+    hs = torch.empty((B, num_steps, ap), dtype=torch.float32, device=dev)
     fn = _build.function("attn_tail", "attn_tail", _ARGTYPES)
-    err = fn(feats.data_ptr(), scores.data_ptr(), mask.data_ptr(), w_hid.data_ptr(),
-             b_hid.data_ptr(), w_ih_t.data_ptr(), w_hh_t.data_ptr(), bias.data_ptr(),
-             hs.data_ptr(), B, T, int(num_steps), A, float(n_phantom), _build.stream_ptr(dev))
+    err = fn(feats.data_ptr(), scores.data_ptr(), mask.data_ptr(), w_ih.data_ptr(),
+             w_hh.data_ptr(), bias.data_ptr(), hs.data_ptr(), B, T, int(num_steps), ap,
+             float(n_phantom), _build.stream_ptr(dev))
     _build.check(err, "attn_tail launch")
     launches += 1
-    return hs
+    return hs if ap == A else hs[..., :A]

@@ -23,8 +23,9 @@ from videonavqa_tpu_torch.ops.linear import linear
 
 launches = 0
 
-# The wide kernel serves one batch row per lane of a warp; the hidden-128
-# kernel one row per cluster along the grid's y.
+# The wide kernel serves one batch row per lane of a warp, so a launch takes
+# at most 32 rows (a wider batch goes in launches of 32 rows); the
+# hidden-128 kernel one row per cluster along the grid's y.
 MAX_BATCH_WIDE = 32
 MAX_BATCH_H128 = 65535
 
@@ -82,8 +83,8 @@ def lstm_frames(xw, w_hh, b_hh, lens, h0, c0, num_frames):
     are zero at t >= len in every pass.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel: one
-    launch at hidden size 128, one a pass at any other (the wide kernel runs
-    one pass)."""
+    launch at hidden size 128; at any other, one a pass of up to 32 batch
+    rows (the wide kernel runs one pass; ``_wide_pass``)."""
     if xw.device.type == "cpu":
         return lstm_frames_plain(xw, w_hh, b_hh, lens, h0, c0, num_frames)
     T, B, G = xw.shape
@@ -93,17 +94,30 @@ def lstm_frames(xw, w_hh, b_hh, lens, h0, c0, num_frames):
     if H == 128 and B > MAX_BATCH_H128:
         raise ValueError(f"lstm kernel at hidden size 128 takes at most {MAX_BATCH_H128} batch"
                          f" rows a launch, got {B}")
-    if H != 128 and (B > MAX_BATCH_WIDE or H % 4 != 0):
-        raise ValueError(f"lstm kernel at a hidden size other than 128 needs a multiple of 4 "
-                         f"and at most {MAX_BATCH_WIDE} batch rows a launch, got hidden {H}, "
-                         f"batch {B}")
+    if H != 128 and H % 4 != 0:
+        raise ValueError(f"lstm kernel at a hidden size other than 128 needs a multiple of 4"
+                         f" (it moves h and W_hh 16 bytes at a time), got hidden {H}")
     if H == 128:
         return _launch(xw, w_hh, b_hh, lens, h0, c0, num_frames)
     frames, h, c = [], h0, c0
     for _ in range(num_frames):
-        outs, h, c = _launch(xw, w_hh, b_hh, lens, h, c, 1)
-        frames.append(outs[0])
+        outs, h, c = _wide_pass(xw, w_hh, b_hh, lens, h, c)
+        frames.append(outs)
     return torch.stack(frames), h, c
+
+
+def _wide_pass(xw, w_hh, b_hh, lens, h0, c0):
+    """One pass at a hidden size other than 128 -> (outs [T, B, H], h_f, c_f):
+    batch rows are independent, so a batch wider than MAX_BATCH_WIDE runs as
+    one launch per slice of at most that many rows."""
+    B, n = xw.shape[1], MAX_BATCH_WIDE
+    if B <= n:
+        outs, h, c = _launch(xw, w_hh, b_hh, lens, h0, c0, 1)
+        return outs[0], h, c
+    parts = [_launch(xw[:, s:s + n].contiguous(), w_hh, b_hh, lens[s:s + n], h0[s:s + n],
+                     c0[s:s + n], 1) for s in range(0, B, n)]
+    return (torch.cat([p[0][0] for p in parts], dim=1), torch.cat([p[1] for p in parts]),
+            torch.cat([p[2] for p in parts]))
 
 
 def _launch(xw, w_hh, b_hh, lens, h0, c0, num_frames):
