@@ -48,7 +48,23 @@ kernel's plain version):
              concat2d and mac at the ModelConfig defaults (hidden 128,
              mac_dim 512, 12 MAC steps) at batch 32 and batch 1, the video
              models from seeded uint8 frames [35, 160, 208, 3]; and mac at
-             batch 64 (its wide LSTMs in two launches of 32 rows a pass).
+             batch 64 (its wide LSTMs in two launches of 32 rows a pass);
+5. train   — film_attn_pt's train step (train/step.py make_train_step):
+             (a) at the small config of tests/test_torch_film_attn.py in
+             f32, TF32 off, 3 steps (sum loss, clip 1.0, Adam 1e-3) on the
+             card and the same 3 on the CPU from the same seeded weights and
+             numpy-seeded batches, held to TRAIN_* below; (b) at the eval.sh
+             preset (bf16, batch 32, T35, 56 tokens, sum loss, clip 1.0,
+             Adam 1e-4) from seeded bf16 features: 8 steps on one batch, the
+             second to fourth timed, the fifth profiled, every loss and
+             grad_norm finite and the last loss under the first, and the
+             plain re-encode's forward and backward timed alone; (c) the
+             same from seeded uint8 video [32, 35, 160, 208, 3] through the
+             frozen stem (seed 1234, all 1,120 frames in one chunk, as the
+             engine serves them: VGG block 1 through its kernel once a
+             step), 5 steps, counted, and the stem's share of a step from
+             the stem timed alone. The train forward runs no other kernel:
+             no kernel has a backward pass.
 
 Run one kernel's check alone (it builds only that source), e.g.
 ``python3 -c "import torch, chip_smoke as cs; cs.check_vgg_block1(torch.device('cuda'))"``.
@@ -62,11 +78,13 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -76,13 +94,19 @@ from videonavqa_tpu_torch.kernels import film_reencode as reenc_mod
 from videonavqa_tpu_torch.kernels import int8_matmul as int8_mod
 from videonavqa_tpu_torch.kernels import lstm as lstm_mod
 from videonavqa_tpu_torch.kernels import vgg_block1 as block1_mod
-from videonavqa_tpu_torch.models import ModelConfig
-from videonavqa_tpu_torch.models.film import INT8_FUSED_MAX_ROWS
+from videonavqa_tpu_torch.models import ModelConfig, get_model
+from videonavqa_tpu_torch.models.film import (
+    INT8_FUSED_MAX_ROWS, film_values_over_frames, init_film_attn)
 from videonavqa_tpu_torch.ops import initializers as init
 from videonavqa_tpu_torch.ops.masking import attn_frame_mask, length_mask
 from videonavqa_tpu_torch.ops.quant import (
     act_scale, conv2d_int8_prequant, quantize_act, quantize_weight_channelwise)
-from videonavqa_tpu_torch.serve.engine import InferenceEngine
+from videonavqa_tpu_torch.ops.video import normalize_video
+from videonavqa_tpu_torch.serve.engine import STEM_SEED, InferenceEngine
+from videonavqa_tpu_torch.stem import init_obj_detector, init_vgg_partial, stem_features
+from videonavqa_tpu_torch.train.step import (
+    make_optimizer, make_train_step, tree_items, tree_leaves)
+from videonavqa_tpu_torch.utils.device import tree_to
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -97,6 +121,9 @@ YQ_MAX_FRACTION = 1e-4   # ... on at most this share of elements
 PROB_ATOL = 2e-2         # serving, kernel path vs plain path, probabilities
 ARGMAX_MARGIN = 1e-2     # argmax must agree where the top-2 logit margin is wider
 BLOCK1_F32_TOL = (2e-5, 2e-6)   # (rtol, atol) f32 block 1: the JAX kernel test's own
+TRAIN_LOSS_RTOL = 1e-5   # train step, card vs CPU, f32: each step's loss
+TRAIN_GRAD_TOL = 1e-5    # ... step 1's gradients, as a share of the largest gradient
+TRAIN_PARAM_ATOL = 5e-4  # ... params and BN state after 3 steps (the JAX golden's bound)
 
 REPO_SOURCE = {
     "film_reencode": ("videonavqa_tpu_torch/csrc/film_reencode.cu",
@@ -465,8 +492,6 @@ def bit_digests(dev):
     """{name: sha256 hex} of film_reencode's finals and lstm's (outs, h_f,
     c_f) at BITS_REENCODE and BITS_LSTM, hidden 128, ragged lengths."""
     import hashlib
-
-    import numpy as np
 
     H = 128
     rng = np.random.default_rng(70)
@@ -1113,6 +1138,191 @@ def serve(dev):
     return total, ms, worst, tally
 
 
+# The small film_attn_pt of tests/test_torch_film_attn.py (f32).
+TRAIN_SMALL = dict(num_classes=7, vocab_size=19, embed_size=8, hidden_size=8, at_hidden_size=8,
+                   num_res_blocks=2, num_res_block_channels=16, num_input_channels=12,
+                   num_tail_channels=4, max_num_frames=6, max_q_len=9,
+                   compute_dtype="float32")
+# The eval.sh preset's batch.
+TRAIN_BATCH = 32
+
+
+def train_batch(B, T, q_max, vocab, classes, seed, feat_shape=None):
+    """Numpy-seeded train batch (question, lengths, labels, and features of
+    ``feat_shape`` [10, 13, C] zero past each v_len), as CPU tensors; one
+    example runs all T frames and one all q_max tokens."""
+    r = np.random.default_rng(seed)
+    v_len = r.integers(1, T + 1, B)
+    q_len = r.integers(1, q_max + 1, B)
+    v_len[0], q_len[-1] = T, q_max
+    q = r.integers(1, vocab, (B, q_max))
+    q[np.arange(q_max)[None, :] >= q_len[:, None]] = 0
+    batch = {"question": torch.from_numpy(q.astype(np.int64)),
+             "q_len": torch.from_numpy(q_len.astype(np.int64)),
+             "v_len": torch.from_numpy(v_len.astype(np.int64)),
+             "label": torch.from_numpy(r.integers(0, classes, B).astype(np.int64))}
+    if feat_shape is not None:
+        v = np.maximum(r.standard_normal((B, T, *feat_shape)), 0).astype(np.float32)
+        v[np.arange(T)[None, :] >= v_len[:, None]] = 0.0
+        batch["v_features"] = torch.from_numpy(v)
+    return batch
+
+
+def run_train_steps(cfg, dev, batches, lr):
+    """Steps of make_train_step (sum loss, clip 1.0) over ``batches`` from the
+    weights of seed 0 on ``dev`` -> (losses, step 1's gradients, params, state)."""
+    params, state = init_film_attn(torch.Generator().manual_seed(0), cfg, dev)
+    train = make_train_step(get_model(cfg.model), cfg, make_optimizer(params, lr),
+                            reduction="sum", clip_value=1.0)
+    losses, grads = [], None
+    for b in batches:
+        state, m = train(params, state, tree_to(b, dev))
+        losses.append(float(m["loss"]))
+        if grads is None:
+            grads = [p.grad.detach().cpu().clone() for p in tree_leaves(params)]
+    return losses, grads, params, state
+
+
+def train_parity(dev):
+    """(a): 3 train steps on the card against the same 3 on the CPU, f32,
+    TF32 off; raises beyond the TRAIN_* bounds."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = ModelConfig(**TRAIN_SMALL)
+    batches = [train_batch(3, 6, 9, 19, 7, 60 + i, (10, 13, 12)) for i in range(3)]
+    cpu = run_train_steps(cfg, torch.device("cpu"), batches, 1e-3)
+    card = run_train_steps(cfg, dev, batches, 1e-3)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card[0], cpu[0]))
+    top = max(float(g.abs().max()) for g in cpu[1])
+    grad_err = max(float((a - b).abs().max()) for a, b in zip(card[1], cpu[1])) / top
+    names = [n for n, _ in tree_items(cpu[2])] + [n for n, _ in tree_items(cpu[3])]
+    pairs = list(zip(tree_leaves(card[2]) + tree_leaves(card[3]),
+                     tree_leaves(cpu[2]) + tree_leaves(cpu[3])))
+    errs = [float((a.detach().cpu() - b.detach()).abs().max()) for a, b in pairs]
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    log(f"  train parity, card vs CPU, small config f32, 3 steps: losses {card[0]} vs"
+        f" {cpu[0]}, worst loss rel. error {loss_err:.3e} (bound {TRAIN_LOSS_RTOL}); step 1"
+        f" gradients within {grad_err:.3e} of the largest {top:.4f} (bound {TRAIN_GRAD_TOL});"
+        f" params and BN state within {errs[worst]:.3e} (bound {TRAIN_PARAM_ATOL}; worst leaf"
+        f" {names[worst]})")
+    if loss_err > TRAIN_LOSS_RTOL or grad_err > TRAIN_GRAD_TOL or errs[worst] > TRAIN_PARAM_ATOL:
+        raise AssertionError("train step: the card disagrees with the CPU")
+
+
+def train_flagship(dev, label, batch, stem_fn, steps, profile_at, top=10):
+    """make_train_step at the eval.sh preset over ``batch`` (on the card) for
+    ``steps`` steps; steps 2-4 timed by the host clock around synchronized
+    steps, step ``profile_at`` profiled (none for 0). -> (losses, grad_norms,
+    ms/step, launches over the timed steps, the trained params)."""
+    cfg = FILM_ATTN_CFG
+    params, state = init_film_attn(torch.Generator().manual_seed(0), cfg, dev)
+    train = make_train_step(get_model(cfg.model), cfg, make_optimizer(params, 1e-4),
+                            reduction="sum", clip_value=1.0, stem_fn=stem_fn)
+    losses, norms, times, launches = [], [], [], None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for i in range(1, steps + 1):
+        if i == 2:
+            reset_counters()
+        if i == profile_at:
+            out = []
+            busy, wall, rows = device_breakdown(
+                lambda: out.append(train(params, state, batch)), top)
+            state, m = out[0]
+            log(f"  {label}: one profiled step, device busy {busy:.3f} ms of {wall:.3f} ms"
+                f" wall (idle share {max(0.0, 1 - busy / wall):.3f}); top device ops:")
+            for name, t in rows:
+                log(f"    {t:9.4f} ms  {name[:110]}")
+        else:
+            t0 = time.perf_counter()
+            state, m = train(params, state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        if i == 4:
+            launches = read_counters()
+    ms = sum(times[1:4]) / 3
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"  {label}: {ms:.1f} ms/step ({[round(t, 1) for t in times[1:4]]}), "
+        f"{TRAIN_BATCH / ms * 1e3:.2f} training videos/s, peak memory {peak:.2f} GiB,"
+        f" launches over steps 2-4 {launches}; losses {[round(x, 4) for x in losses]},"
+        f" grad_norms {[round(x, 4) for x in norms]}")
+    return losses, norms, ms, launches, params
+
+
+def reencode_train_ms(params, batch, iters=3):
+    """Host ms (synchronized) of the train step's question re-encode alone at
+    the eval.sh preset over ``params`` (which require grad):
+    film_values_over_frames, plain, and its backward."""
+    cfg = FILM_ATTN_CFG
+
+    def run():
+        for p in tree_leaves(params):
+            p.grad = None
+        films = film_values_over_frames(params, batch["question"], batch["q_len"],
+                                        cfg.max_num_frames, cfg)
+        films.sum().backward()
+        torch.cuda.synchronize()
+
+    run()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        run()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def train(dev):
+    """(a), (b) and (c) -> (launches over (c)'s timed steps, {features_ms,
+    video_ms, stem_ms})."""
+    t0 = time.perf_counter()
+    train_parity(dev)
+    log(f"  (a) in {time.perf_counter() - t0:.1f} s")
+
+    cfg = FILM_ATTN_CFG
+    B, T = TRAIN_BATCH, cfg.max_num_frames
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(21)
+    batch = tree_to(train_batch(B, T, cfg.max_q_len, cfg.vocab_size, cfg.num_classes, 22), dev)
+    batch["v_features"] = torch.relu(torch.randn((B, T, 10, 13, cfg.num_input_channels),
+                                                 generator=gen, device=dev)).to(torch.bfloat16)
+    losses, norms, feat_ms, feat_launches, params = train_flagship(
+        dev, f"(b) film_attn_pt train step from bf16 features, batch {B} T{T}", batch, None, 8, 5)
+    expect_launches("film_attn_pt train from features", feat_launches, {})
+    if not all(np.isfinite(losses + norms)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train from features: losses {losses}, grad norms {norms}: not"
+                             " all finite, or the last loss is not under the first")
+    reenc_ms = reencode_train_ms(params, batch)
+    log(f"  (b) in {time.perf_counter() - t0:.1f} s; loss {losses[0]:.4f} -> {losses[-1]:.4f}"
+        f" over 8 steps on one batch; the plain re-encode's forward and backward alone"
+        f" {reenc_ms:.1f} ms, {reenc_ms / feat_ms:.3f} of a step")
+    del batch, params
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    sgen = torch.Generator().manual_seed(STEM_SEED)
+    stem = [tree_to(t, dev) for t in (init_vgg_partial(sgen),
+                                      *init_obj_detector(sgen, num_filters=cfg.num_input_channels))]
+    stem_fn = functools.partial(stem_features, *stem, dtype=torch.bfloat16, use_kernel=True)
+    batch = tree_to(train_batch(B, T, cfg.max_q_len, cfg.vocab_size, cfg.num_classes, 23), dev)
+    batch["video"] = torch.randint(0, 256, (B, T, 160, 208, 3), generator=gen, device=dev,
+                                   dtype=torch.uint8)
+    losses, norms, video_ms, video_launches, _ = train_flagship(
+        dev, f"(c) film_attn_pt train step from uint8 video, batch {B} T{T}", batch, stem_fn,
+        5, 5)
+    expect_launches("film_attn_pt train from video", video_launches, {"vgg_block1": 3})
+    if not all(np.isfinite(losses + norms)):
+        raise AssertionError(f"train from video: losses {losses}, grad norms {norms}")
+    if any(t.requires_grad or t.grad is not None for t in tree_leaves(stem)):
+        raise AssertionError("train from video: a gradient reached the frozen stem")
+    with torch.no_grad():
+        stem_ms = time_ms(lambda: stem_fn(normalize_video(batch["video"])), 3, 1)
+    log(f"  (c) in {time.perf_counter() - t0:.1f} s; the stem alone {stem_ms:.1f} ms (CUDA"
+        f" events), {stem_ms / video_ms:.3f} of a {video_ms:.1f} ms step; vgg_block1 1"
+        f" launch a step")
+    return video_launches, {"features_ms": feat_ms, "video_ms": video_ms, "stem_ms": stem_ms}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -1157,6 +1367,16 @@ def main():
     log(f"  serving on {card}, kernel path (plain path) ms/video: "
         + ", ".join(f"{k} {a:.4f} ({b:.4f})" for k, (a, b) in ms.items())
         + f"; worst kernel-vs-plain |dprob| {worst:.3e}")
+
+    log("phase train")
+    train_launches, trained = train(dev)
+    for name, n in train_launches.items():
+        launches[name] += n
+    log(f"  training on {card}: from features {trained['features_ms']:.1f} ms/step"
+        f" ({TRAIN_BATCH * 1e3 / trained['features_ms']:.2f} videos/s), from video"
+        f" {trained['video_ms']:.1f} ms/step"
+        f" ({TRAIN_BATCH * 1e3 / trained['video_ms']:.2f} videos/s),"
+        f" the stem {trained['stem_ms']:.1f} ms of it")
 
     def entry(name, row, err):
         src, repl = REPO_SOURCE[name]

@@ -65,7 +65,8 @@ class ModelConfig:
     # f32 eval forward that records each trunk conv's input absmax (1.25x
     # headroom) and its pre-quantized int8 weights into the returned state.
     int8_trunk_calibrate: bool = False
-    # Training-only options of the JAX package, kept so configs carry over.
+    # Training options (the FiLM trunk's train forward): recompute each block in
+    # the backward pass; keep the 1x1 convs frozen.
     remat_film_blocks: bool = False
     freeze_film_conv1x1: bool = False
 

@@ -1,4 +1,4 @@
-"""film_attn_pt over the frozen stem, eval forward (the port of models/film.py).
+"""film_attn_pt over the frozen stem (the port of models/film.py).
 
 Per frame: conv3x3(512->C) -> ReLU -> BN, then N residual FiLM blocks
     res = ReLU(conv1x1(x)); y = conv3x3(res); y = ReLU(alpha*y + beta) + res
@@ -11,18 +11,25 @@ three modes: plain (``compute_dtype``); the f32 calibration pass, which
 records each conv's input absmax (1.25x headroom) and pre-quantized int8
 weights into the state; and static int8 from that state, where the 1x1 convs
 take the fused int8 kernel when the folded row count is at or under
-``INT8_FUSED_MAX_ROWS``. Only the eval forward is ported (``train=False``).
+``INT8_FUSED_MAX_ROWS``.
+
+The train forward (``train=True``) runs the plain trunk in ``compute_dtype``
+and the plain re-encode and attention tail, whatever
+``cfg.use_pallas_kernels`` says, as the JAX package does: no kernel has a
+backward pass. Its frame BatchNorm takes batch statistics and returns the
+new running ones.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from videonavqa_tpu_torch.kernels.attn_tail import attn_tail, attn_tail_plain
 from videonavqa_tpu_torch.kernels.film_reencode import (
     check_shape as check_reencode_shape, film_reencode, film_reencode_plain)
 from videonavqa_tpu_torch.kernels.int8_matmul import check_shape, matmul_int8_fused
-from videonavqa_tpu_torch.models.base import DTYPES, eval_only, register_model
+from videonavqa_tpu_torch.models.base import DTYPES, register_model
 from videonavqa_tpu_torch.ops import initializers as init
 from videonavqa_tpu_torch.ops.conv import conv2d
 from videonavqa_tpu_torch.ops.linear import embedding, linear, linear_chw
@@ -55,11 +62,14 @@ def init_film_trunk(gen, cfg):
     return params, {"bn_init": bn_state}
 
 
-def _trunk_convs(params, state, cfg, rows, new_state, device):
+def _trunk_convs(params, state, cfg, rows, new_state, device, train=False):
     """(conv, block_convs) of the trunk's mode; block_convs is None unless the
     fused int8 1x1 kernel runs. Off the CPU, a trunk whose width the kernel
-    does not take is refused here, before any conv runs."""
+    does not take is refused here, before any conv runs. Training takes the
+    plain convs: no calibration and no int8."""
     dtype = DTYPES[cfg.compute_dtype]
+    if train:
+        return (lambda p, x, name: conv2d(p, x, dtype=dtype)), None
     if cfg.int8_trunk_calibrate:
         captured, captured_wq = {}, {}
         new_state["int8_scales"] = captured
@@ -107,31 +117,44 @@ def film_trunk(params, state, feats, film_values, frame_mask, cfg, *, train=Fals
     """feats [B,T,10,13,Cin], film_values [B,T,2*C*N] -> ([B,T,10,13,C], new_state).
 
     Conv outputs are stored at the compute dtype, BN works in f32, and the
-    FiLM values are cast to the conv output's dtype."""
-    eval_only(train)
+    FiLM values are cast to the conv output's dtype. ``cfg.freeze_film_conv1x1``
+    detaches the 1x1 convs' parameters; ``cfg.remat_film_blocks`` recomputes
+    each block in the backward pass instead of keeping its activations."""
     B, T = feats.shape[:2]
     ch = cfg.num_res_block_channels
     new_state = dict(state)
     conv, block_convs = _trunk_convs(params, state, cfg,
                                      B * T * feats.shape[2] * feats.shape[3], new_state,
-                                     feats.device)
+                                     feats.device, train)
     if block_convs is None:
         def block_convs(k, x, p1x1, p3x3):
             res = torch.relu(conv(p1x1, x, f"conv1x1_{k}"))
             return res, conv(p3x3, res, f"conv3x3_{k}")
 
+    def block(k, x, p1x1, p3x3, alphas, betas):
+        res, y = block_convs(k, x, p1x1, p3x3)
+        a = alphas.to(y.dtype)[:, None, None, :]
+        b = betas.to(y.dtype)[:, None, None, :]
+        return torch.relu(a * y + b) + res
+
+    if cfg.remat_film_blocks and train:
+        run_block = lambda *args: checkpoint(block, *args, use_reentrant=False)
+    else:
+        run_block = block
+
     x = torch.relu(conv(params["conv_init"], feats.reshape(B * T, *feats.shape[2:]),
                         "conv_init"))
     x, new_state["bn_init"] = frame_batch_norm(
         params["bn_init"], state["bn_init"], x.reshape(B, T, *x.shape[1:]), frame_mask,
-        train=False)
+        train=train)
     x = x.reshape(B * T, *x.shape[2:])
     fv = film_values.reshape(B * T, -1)
     for k in range(cfg.num_res_blocks):
-        res, y = block_convs(k, x, params[f"conv1x1_{k}"], params[f"conv3x3_{k}"])
-        a = fv[:, 2 * k * ch: 2 * k * ch + ch].to(y.dtype)[:, None, None, :]
-        b = fv[:, 2 * k * ch + ch: 2 * (k + 1) * ch].to(y.dtype)[:, None, None, :]
-        x = torch.relu(a * y + b) + res
+        p1x1 = params[f"conv1x1_{k}"]
+        if cfg.freeze_film_conv1x1:
+            p1x1 = {name: t.detach() for name, t in p1x1.items()}
+        x = run_block(k, x, p1x1, params[f"conv3x3_{k}"],
+                      fv[:, 2 * k * ch: 2 * k * ch + ch], fv[:, 2 * k * ch + ch: 2 * (k + 1) * ch])
     return x.reshape(B, T, *x.shape[1:]), new_state
 
 
@@ -146,19 +169,19 @@ def init_film_generator(gen, cfg, total_out):
     }
 
 
-def film_values_over_frames(params, q, q_lens, num_frames, cfg):
+def film_values_over_frames(params, q, q_lens, num_frames, cfg, *, use_kernel=False):
     """FiLM (gamma, beta) per frame: [B, T, total_out] f32.
 
     One question re-encode per frame with carried (h, c). The token
     projection is the same for every frame: one matmul, then the whole
-    num_frames x q_len double recurrence, as one kernel when
-    ``cfg.use_pallas_kernels`` (kernels/film_reencode.py)."""
+    num_frames x q_len double recurrence, as one kernel with ``use_kernel``
+    (kernels/film_reencode.py)."""
     if cfg.q_encoder != "lstm":
         raise NotImplementedError("the port has only the LSTM FiLM encoder")
     enc_p = params["encoder"]
     emb = embedding(params["embed"], q)
     xw = linear({"weight": enc_p["w_ih"], "bias": enc_p["b_ih"]}, emb)  # [B,Tq,4H]
-    run = film_reencode if cfg.use_pallas_kernels else film_reencode_plain
+    run = film_reencode if use_kernel else film_reencode_plain
     enc = run(xw.transpose(0, 1).contiguous(), enc_p["w_hh"].float().contiguous(),
               enc_p["b_hh"].float().contiguous(), q_lens.to(torch.int32), num_frames)
     return torch.relu(linear(params["decoder"], enc.transpose(0, 1)))
@@ -181,21 +204,21 @@ def init_film_attn(gen, cfg, device):
 
 
 def apply_film_attn(params, state, batch, cfg, *, train=False, generator=None):
-    """Eval forward: batch (see models/base.py) -> (logits [B, num_classes],
-    new_state). Kernels run where ``cfg.use_pallas_kernels`` asks for them;
-    off the CPU a re-encode shape its kernel does not take is refused here,
-    before any kernel runs."""
-    eval_only(train)
+    """batch (see models/base.py) -> (logits [B, num_classes], new_state).
+    The eval forward runs the kernels where ``cfg.use_pallas_kernels`` asks
+    for them; off the CPU a re-encode shape its kernel does not take is
+    refused here, before any kernel runs. The train forward runs none."""
     feats, v_lens = batch["v_features"], batch["v_len"]
     q, q_lens = batch["question"], batch["q_len"]
     B, T = feats.shape[:2]
-    if cfg.use_pallas_kernels and q.device.type != "cpu":
+    use_kernels = cfg.use_pallas_kernels and not train
+    if use_kernels and q.device.type != "cpu":
         check_reencode_shape(B, cfg.hidden_size)
     frame_mask = length_mask(v_lens, T)
 
-    films = film_values_over_frames(params, q, q_lens, T, cfg)
+    films = film_values_over_frames(params, q, q_lens, T, cfg, use_kernel=use_kernels)
     x, trunk_state = film_trunk(params["trunk"], state["trunk"], feats, films,
-                                frame_mask, cfg)
+                                frame_mask, cfg, train=train)
 
     # per-frame feature embedding; invalid frames zero
     all_features = mask_invalid(linear_chw(params["fc_embed_attn"], x), v_lens)
@@ -207,7 +230,7 @@ def apply_film_attn(params, state, batch, cfg, *, train=False, generator=None):
     # to the softmax normalizer and nothing to the context
     n_phantom = float(cfg.max_num_frames - T)
 
-    run = attn_tail if cfg.use_pallas_kernels else attn_tail_plain
+    run = attn_tail if use_kernels else attn_tail_plain
     # the LSTMCell runs all max_num_frames steps, whatever the trim
     hs = run(params, all_features, scores, mask, cfg.max_num_frames, n_phantom)
     return linear(params["out_linear"], hs.reshape(B, -1)), {"trunk": trunk_state}
