@@ -49,22 +49,32 @@ kernel's plain version):
              mac_dim 512, 12 MAC steps) at batch 32 and batch 1, the video
              models from seeded uint8 frames [35, 160, 208, 3]; and mac at
              batch 64 (its wide LSTMs in two launches of 32 rows a pass);
-5. train   — film_attn_pt's train step (train/step.py make_train_step):
-             (a) at the small config of tests/test_torch_film_attn.py in
-             f32, TF32 off, 3 steps (sum loss, clip 1.0, Adam 1e-3) on the
-             card and the same 3 on the CPU from the same seeded weights and
-             numpy-seeded batches, held to TRAIN_* below; (b) at the eval.sh
-             preset (bf16, batch 32, T35, 56 tokens, sum loss, clip 1.0,
-             Adam 1e-4) from seeded bf16 features: 8 steps on one batch, the
-             second to fourth timed, the fifth profiled, every loss and
-             grad_norm finite and the last loss under the first, and the
-             plain re-encode's forward and backward timed alone; (c) the
-             same from seeded uint8 video [32, 35, 160, 208, 3] through the
-             frozen stem (seed 1234, all 1,120 frames in one chunk, as the
-             engine serves them: VGG block 1 through its kernel once a
-             step), 5 steps, counted, and the stem's share of a step from
-             the stem timed alone. The train forward runs no other kernel:
-             no kernel has a backward pass.
+5. train   — the train steps (train/step.py make_train_step, a generator on
+             the step's device for each step, seeded by its index): (a) 3
+             steps on the card and the same 3 on the CPU from the same
+             seeded weights and numpy-seeded batches, f32, TF32 off, held to
+             TRAIN_* below with no kernel launched: film_attn_pt at the
+             small config of tests/test_torch_film_attn.py, time_multi_hop
+             and MAC (without dropout: the two generators draw different
+             masks) at that of tests/test_torch_lstm_models.py, kernels
+             asked for; (b) film_attn_pt at the eval.sh preset (bf16, batch
+             32, T35, 56 tokens, sum loss, clip 1.0, Adam 1e-4) from seeded
+             bf16 features: 8 steps on one batch, the second to fourth
+             timed, the fifth profiled, every loss and grad_norm finite and
+             the last loss under the first, and the plain re-encode's
+             forward and backward timed alone; (c) the same from seeded
+             uint8 video [32, 35, 160, 208, 3] through the frozen stem (seed
+             1234, all 1,120 frames in one chunk, as the engine serves them:
+             VGG block 1 through its kernel once a step), 5 steps, counted,
+             and the stem's share of a step from the stem timed alone; (d)
+             time_multi_hop at its eval.sh preset (batch 16, lr 5e-5) from
+             bf16 features, 5 steps, and its plain hop encoder's forward and
+             backward alone; (e) MAC at the ModelConfig defaults (batch 32,
+             dropout 0.15, mean loss, the +-1 clamp, lr 1e-4) from bf16
+             features (6 steps) and from uint8 video through the stem (5
+             steps). The train forward runs no kernel but the stem's: no
+             kernel has a backward pass, and the LSTM kernel launches 0
+             times in (a), (d) and (e).
 
 Run one kernel's check alone (it builds only that source), e.g.
 ``python3 -c "import torch, chip_smoke as cs; cs.check_vgg_block1(torch.device('cuda'))"``.
@@ -88,6 +98,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from videonavqa_tpu_torch.cli.common import PRESET_L_RATE, TRAIN_STEP_OPTIONS
 from videonavqa_tpu_torch.kernels import _build
 from videonavqa_tpu_torch.kernels import attn_tail as attn_mod
 from videonavqa_tpu_torch.kernels import film_reencode as reenc_mod
@@ -95,8 +106,8 @@ from videonavqa_tpu_torch.kernels import int8_matmul as int8_mod
 from videonavqa_tpu_torch.kernels import lstm as lstm_mod
 from videonavqa_tpu_torch.kernels import vgg_block1 as block1_mod
 from videonavqa_tpu_torch.models import ModelConfig, get_model
-from videonavqa_tpu_torch.models.film import (
-    INT8_FUSED_MAX_ROWS, film_values_over_frames, init_film_attn)
+from videonavqa_tpu_torch.models.film import INT8_FUSED_MAX_ROWS, film_values_over_frames
+from videonavqa_tpu_torch.models.time_multi_hop import film_values_all_frames
 from videonavqa_tpu_torch.ops import initializers as init
 from videonavqa_tpu_torch.ops.masking import attn_frame_mask, length_mask
 from videonavqa_tpu_torch.ops.quant import (
@@ -1038,16 +1049,22 @@ def serve_film_attn_video(dev, video, tally):
     return launches, ms, worst
 
 
+TIME_MULTI_HOP_CFG = ModelConfig(
+    model="time_multi_hop", num_res_blocks=3, num_res_block_channels=1024, num_tail_channels=64,
+    hidden_size=128, embed_size=128, num_input_channels=512, compute_dtype="bfloat16",
+    max_num_frames=35, max_q_len=56, vocab_size=134, num_classes=70, use_pallas_kernels=True,
+    use_int8_trunk=True)
+# MAC at the ModelConfig defaults (mac_dim 512, 12 steps, dropout 0.15, bf16
+# knowledge convs).
+MAC_CFG = ModelConfig(model="mac", use_pallas_kernels=True)
+
+
 def serve_time_multi_hop(dev, feats, tally):
     """eval.sh preset: 3 FiLM blocks x 1024 channels, 64 tail channels, batch 16.
     The LSTM kernel launches once a forward, all frames chained (3); the fused
     int8 1x1 kernel once per block in each forward at or under the row gate
     (batch 16: 41,600 and 72,800 folded rows; batch 1: 4,550)."""
-    cfg = ModelConfig(model="time_multi_hop", num_res_blocks=3, num_res_block_channels=1024,
-                      num_tail_channels=64, hidden_size=128, embed_size=128,
-                      num_input_channels=512, compute_dtype="bfloat16", max_num_frames=35,
-                      max_q_len=56, vocab_size=134, num_classes=70,
-                      use_pallas_kernels=True, use_int8_trunk=True)
+    cfg = TIME_MULTI_HOP_CFG
     launches, ms, worst = serve_stem_model(dev, cfg, feats, 16, 7, tally)
     expect_launches(cfg.model, launches, {
         "lstm": 3,
@@ -1094,7 +1111,7 @@ def serve_mac_batch64(dev, feats, tally):
     """mac at the ModelConfig defaults served at batch 64 through the engine:
     its biLSTM (hidden 512) and tail LSTM (1536) each run as two launches of
     32 batch rows. Counted, held against the plain path, timed."""
-    cfg = ModelConfig(model="mac", use_pallas_kernels=True)
+    cfg = MAC_CFG
     eng = InferenceEngine(cfg, seed=0, max_batch=64, device=dev)
     its = feature_items(feats, torch.Generator().manual_seed(13), 0, 64, 35)
     its[0] = (its[0][0], 35, its[0][2])
@@ -1143,8 +1160,12 @@ TRAIN_SMALL = dict(num_classes=7, vocab_size=19, embed_size=8, hidden_size=8, at
                    num_res_blocks=2, num_res_block_channels=16, num_input_channels=12,
                    num_tail_channels=4, max_num_frames=6, max_q_len=9,
                    compute_dtype="float32")
-# The eval.sh preset's batch.
-TRAIN_BATCH = 32
+# The small widths of tests/test_torch_lstm_models.py (f32, the kernels asked
+# for, which no train forward takes): time_multi_hop's and MAC's parity runs.
+ZOO_SMALL = dict(num_classes=7, vocab_size=19, embed_size=8, hidden_size=8,
+                 num_res_blocks=2, num_res_block_channels=16, num_input_channels=12,
+                 num_tail_channels=4, mac_dim=8, mac_max_step=2, max_num_frames=6,
+                 max_q_len=9, compute_dtype="float32", use_pallas_kernels=True)
 
 
 def train_batch(B, T, q_max, vocab, classes, seed, feat_shape=None):
@@ -1169,14 +1190,17 @@ def train_batch(B, T, q_max, vocab, classes, seed, feat_shape=None):
 
 
 def run_train_steps(cfg, dev, batches, lr):
-    """Steps of make_train_step (sum loss, clip 1.0) over ``batches`` from the
-    weights of seed 0 on ``dev`` -> (losses, step 1's gradients, params, state)."""
-    params, state = init_film_attn(torch.Generator().manual_seed(0), cfg, dev)
-    train = make_train_step(get_model(cfg.model), cfg, make_optimizer(params, lr),
-                            reduction="sum", clip_value=1.0)
+    """Steps of make_train_step (the model's TRAIN_STEP_OPTIONS) over
+    ``batches`` from the model's weights of seed 0 on ``dev``, step i drawing
+    from a generator on ``dev`` seeded i -> (losses, step 1's gradients,
+    params, state)."""
+    spec = get_model(cfg.model)
+    params, state = spec.init(torch.Generator().manual_seed(0), cfg, dev)
+    train = make_train_step(spec, cfg, make_optimizer(params, lr),
+                            **TRAIN_STEP_OPTIONS[cfg.model])
     losses, grads = [], None
-    for b in batches:
-        state, m = train(params, state, tree_to(b, dev))
+    for i, b in enumerate(batches):
+        state, m = train(params, state, tree_to(b, dev), torch.Generator(device=dev).manual_seed(i))
         losses.append(float(m["loss"]))
         if grads is None:
             grads = [p.grad.detach().cpu().clone() for p in tree_leaves(params)]
@@ -1185,57 +1209,71 @@ def run_train_steps(cfg, dev, batches, lr):
 
 def train_parity(dev):
     """(a): 3 train steps on the card against the same 3 on the CPU, f32,
-    TF32 off; raises beyond the TRAIN_* bounds."""
+    TF32 off: film_attn_pt at TRAIN_SMALL, time_multi_hop and MAC at
+    ZOO_SMALL, MAC without dropout (the card's generator and the CPU's draw
+    different masks; the dropout is held to JAX on the CPU). Raises beyond
+    the TRAIN_* bounds, or where a kernel was launched."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = ModelConfig(**TRAIN_SMALL)
     batches = [train_batch(3, 6, 9, 19, 7, 60 + i, (10, 13, 12)) for i in range(3)]
-    cpu = run_train_steps(cfg, torch.device("cpu"), batches, 1e-3)
-    card = run_train_steps(cfg, dev, batches, 1e-3)
-    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card[0], cpu[0]))
-    top = max(float(g.abs().max()) for g in cpu[1])
-    grad_err = max(float((a - b).abs().max()) for a, b in zip(card[1], cpu[1])) / top
-    names = [n for n, _ in tree_items(cpu[2])] + [n for n, _ in tree_items(cpu[3])]
-    pairs = list(zip(tree_leaves(card[2]) + tree_leaves(card[3]),
-                     tree_leaves(cpu[2]) + tree_leaves(cpu[3])))
-    errs = [float((a.detach().cpu() - b.detach()).abs().max()) for a, b in pairs]
-    worst = max(range(len(errs)), key=errs.__getitem__)
-    log(f"  train parity, card vs CPU, small config f32, 3 steps: losses {card[0]} vs"
-        f" {cpu[0]}, worst loss rel. error {loss_err:.3e} (bound {TRAIN_LOSS_RTOL}); step 1"
-        f" gradients within {grad_err:.3e} of the largest {top:.4f} (bound {TRAIN_GRAD_TOL});"
-        f" params and BN state within {errs[worst]:.3e} (bound {TRAIN_PARAM_ATOL}; worst leaf"
-        f" {names[worst]})")
-    if loss_err > TRAIN_LOSS_RTOL or grad_err > TRAIN_GRAD_TOL or errs[worst] > TRAIN_PARAM_ATOL:
-        raise AssertionError("train step: the card disagrees with the CPU")
+    for cfg in (ModelConfig(**TRAIN_SMALL), ModelConfig(model="time_multi_hop", **ZOO_SMALL),
+                ModelConfig(model="mac", mac_dropout=0.0, **ZOO_SMALL)):
+        cpu = run_train_steps(cfg, torch.device("cpu"), batches, 1e-3)
+        reset_counters()
+        card = run_train_steps(cfg, dev, batches, 1e-3)
+        torch.cuda.synchronize()
+        expect_launches(f"{cfg.model} train parity", read_counters(), {})
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(card[0], cpu[0]))
+        top = max(float(g.abs().max()) for g in cpu[1])
+        grad_err = max(float((a - b).abs().max()) for a, b in zip(card[1], cpu[1])) / top
+        names = [n for n, _ in tree_items(cpu[2])] + [n for n, _ in tree_items(cpu[3])]
+        pairs = list(zip(tree_leaves(card[2]) + tree_leaves(card[3]),
+                         tree_leaves(cpu[2]) + tree_leaves(cpu[3])))
+        errs = [float((a.detach().cpu() - b.detach()).abs().max()) for a, b in pairs]
+        worst = max(range(len(errs)), key=errs.__getitem__)
+        log(f"  train parity, {cfg.model}, card vs CPU, small config f32, 3 steps: losses"
+            f" {card[0]} vs {cpu[0]}, worst loss rel. error {loss_err:.3e} (bound"
+            f" {TRAIN_LOSS_RTOL}); step 1 gradients within {grad_err:.3e} of the largest"
+            f" {top:.4f} (bound {TRAIN_GRAD_TOL}); params and BN state within"
+            f" {errs[worst]:.3e} (bound {TRAIN_PARAM_ATOL}; worst leaf {names[worst]});"
+            f" no kernel launched")
+        if (loss_err > TRAIN_LOSS_RTOL or grad_err > TRAIN_GRAD_TOL
+                or errs[worst] > TRAIN_PARAM_ATOL):
+            raise AssertionError(f"{cfg.model} train step: the card disagrees with the CPU")
 
 
-def train_flagship(dev, label, batch, stem_fn, steps, profile_at, top=10):
-    """make_train_step at the eval.sh preset over ``batch`` (on the card) for
-    ``steps`` steps; steps 2-4 timed by the host clock around synchronized
-    steps, step ``profile_at`` profiled (none for 0). -> (losses, grad_norms,
-    ms/step, launches over the timed steps, the trained params)."""
-    cfg = FILM_ATTN_CFG
-    params, state = init_film_attn(torch.Generator().manual_seed(0), cfg, dev)
-    train = make_train_step(get_model(cfg.model), cfg, make_optimizer(params, 1e-4),
-                            reduction="sum", clip_value=1.0, stem_fn=stem_fn)
+def train_preset(dev, cfg, label, batch, stem_fn, steps, profile_at, top=10):
+    """make_train_step at a preset (the model's TRAIN_STEP_OPTIONS and
+    PRESET_L_RATE) over ``batch`` (on the card) for ``steps`` steps from the weights of seed 0,
+    step i drawing from a generator on the card seeded i; steps 2-4 timed by
+    the host clock around synchronized steps, step ``profile_at`` profiled
+    (none for 0). -> (losses, grad_norms, ms/step, launches over the timed
+    steps, the trained params)."""
+    spec = get_model(cfg.model)
+    params, state = spec.init(torch.Generator().manual_seed(0), cfg, dev)
+    train = make_train_step(spec, cfg, make_optimizer(params, PRESET_L_RATE[cfg.model]),
+                            stem_fn=stem_fn, **TRAIN_STEP_OPTIONS[cfg.model])
+    gen = torch.Generator(device=dev)
     losses, norms, times, launches = [], [], [], None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     for i in range(1, steps + 1):
         if i == 2:
             reset_counters()
+        gen.manual_seed(i)
         if i == profile_at:
-            out = []
+            out, t0 = [], time.perf_counter()
             busy, wall, rows = device_breakdown(
-                lambda: out.append(train(params, state, batch)), top)
+                lambda: out.append(train(params, state, batch, gen)), top)
             state, m = out[0]
             log(f"  {label}: one profiled step, device busy {busy:.3f} ms of {wall:.3f} ms"
-                f" wall (idle share {max(0.0, 1 - busy / wall):.3f}); top device ops:")
+                f" wall (idle share {max(0.0, 1 - busy / wall):.3f}; the profiler's step took"
+                f" {time.perf_counter() - t0:.1f} s with its trace); top device ops:")
             for name, t in rows:
                 log(f"    {t:9.4f} ms  {name[:110]}")
         else:
             t0 = time.perf_counter()
-            state, m = train(params, state, batch)
+            state, m = train(params, state, batch, gen)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(m["loss"]))
@@ -1245,54 +1283,74 @@ def train_flagship(dev, label, batch, stem_fn, steps, profile_at, top=10):
     ms = sum(times[1:4]) / 3
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     log(f"  {label}: {ms:.1f} ms/step ({[round(t, 1) for t in times[1:4]]}), "
-        f"{TRAIN_BATCH / ms * 1e3:.2f} training videos/s, peak memory {peak:.2f} GiB,"
+        f"{len(batch['label']) / ms * 1e3:.2f} training videos/s, peak memory {peak:.2f} GiB,"
         f" launches over steps 2-4 {launches}; losses {[round(x, 4) for x in losses]},"
         f" grad_norms {[round(x, 4) for x in norms]}")
     return losses, norms, ms, launches, params
 
 
-def reencode_train_ms(params, batch, iters=3):
-    """Host ms (synchronized) of the train step's question re-encode alone at
-    the eval.sh preset over ``params`` (which require grad):
-    film_values_over_frames, plain, and its backward."""
-    cfg = FILM_ATTN_CFG
+def check_losses(label, losses, norms, falls=True):
+    """Every loss and grad norm finite, and (``falls``) the last loss under the first."""
+    if not all(np.isfinite(losses + norms)) or (falls and not losses[-1] < losses[0]):
+        raise AssertionError(f"{label}: losses {losses}, grad norms {norms}: not all finite"
+                             + (", or the last loss is not under the first" if falls else ""))
+
+
+def check_stem_untouched(label, stem):
+    if any(t.requires_grad or t.grad is not None for t in tree_leaves(list(stem))):
+        raise AssertionError(f"{label}: a gradient reached the frozen stem")
+
+
+def fwd_bwd_ms(params, fn, iters=3, warmup=True):
+    """Host ms (synchronized) of ``fn()``, a plain function of ``params``
+    (which require grad), and the backward of its sum; without ``warmup``
+    where train steps of the same shapes have run just before."""
 
     def run():
         for p in tree_leaves(params):
             p.grad = None
-        films = film_values_over_frames(params, batch["question"], batch["q_len"],
-                                        cfg.max_num_frames, cfg)
-        films.sum().backward()
+        fn().sum().backward()
         torch.cuda.synchronize()
 
-    run()
+    if warmup:
+        run()
     t0 = time.perf_counter()
     for _ in range(iters):
         run()
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-def train(dev):
-    """(a), (b) and (c) -> (launches over (c)'s timed steps, {features_ms,
-    video_ms, stem_ms})."""
-    t0 = time.perf_counter()
-    train_parity(dev)
-    log(f"  (a) in {time.perf_counter() - t0:.1f} s")
+def stem_ms_of(stem_fn, video):
+    with torch.no_grad():
+        return time_ms(lambda: stem_fn(normalize_video(video)), 3, 1)
 
+
+def seeded_features(B, T, cfg, gen, dev):
+    return torch.relu(torch.randn((B, T, 10, 13, cfg.num_input_channels), generator=gen,
+                                  device=dev)).to(torch.bfloat16)
+
+
+def seeded_video(B, T, gen, dev):
+    return torch.randint(0, 256, (B, T, 160, 208, 3), generator=gen, device=dev,
+                         dtype=torch.uint8)
+
+
+def train_film_attn(dev, stem_fn):
+    """(b) and (c) -> (launches over (c)'s counted steps, features ms/step,
+    video ms/step, stem ms)."""
     cfg = FILM_ATTN_CFG
-    B, T = TRAIN_BATCH, cfg.max_num_frames
+    B, T = 32, cfg.max_num_frames
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(21)
     batch = tree_to(train_batch(B, T, cfg.max_q_len, cfg.vocab_size, cfg.num_classes, 22), dev)
-    batch["v_features"] = torch.relu(torch.randn((B, T, 10, 13, cfg.num_input_channels),
-                                                 generator=gen, device=dev)).to(torch.bfloat16)
-    losses, norms, feat_ms, feat_launches, params = train_flagship(
-        dev, f"(b) film_attn_pt train step from bf16 features, batch {B} T{T}", batch, None, 8, 5)
+    batch["v_features"] = seeded_features(B, T, cfg, gen, dev)
+    losses, norms, feat_ms, feat_launches, params = train_preset(
+        dev, cfg, f"(b) film_attn_pt train step from bf16 features, batch {B} T{T}", batch, None,
+        8, 5)
     expect_launches("film_attn_pt train from features", feat_launches, {})
-    if not all(np.isfinite(losses + norms)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"train from features: losses {losses}, grad norms {norms}: not"
-                             " all finite, or the last loss is not under the first")
-    reenc_ms = reencode_train_ms(params, batch)
+    check_losses("film_attn_pt train from features", losses, norms)
+    reenc_ms = fwd_bwd_ms(params, lambda: film_values_over_frames(
+        params, batch["question"], batch["q_len"], T, cfg))
     log(f"  (b) in {time.perf_counter() - t0:.1f} s; loss {losses[0]:.4f} -> {losses[-1]:.4f}"
         f" over 8 steps on one batch; the plain re-encode's forward and backward alone"
         f" {reenc_ms:.1f} ms, {reenc_ms / feat_ms:.3f} of a step")
@@ -1300,27 +1358,99 @@ def train(dev):
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    sgen = torch.Generator().manual_seed(STEM_SEED)
-    stem = [tree_to(t, dev) for t in (init_vgg_partial(sgen),
-                                      *init_obj_detector(sgen, num_filters=cfg.num_input_channels))]
-    stem_fn = functools.partial(stem_features, *stem, dtype=torch.bfloat16, use_kernel=True)
     batch = tree_to(train_batch(B, T, cfg.max_q_len, cfg.vocab_size, cfg.num_classes, 23), dev)
-    batch["video"] = torch.randint(0, 256, (B, T, 160, 208, 3), generator=gen, device=dev,
-                                   dtype=torch.uint8)
-    losses, norms, video_ms, video_launches, _ = train_flagship(
-        dev, f"(c) film_attn_pt train step from uint8 video, batch {B} T{T}", batch, stem_fn,
+    batch["video"] = seeded_video(B, T, gen, dev)
+    losses, norms, video_ms, video_launches, _ = train_preset(
+        dev, cfg, f"(c) film_attn_pt train step from uint8 video, batch {B} T{T}", batch, stem_fn,
         5, 5)
     expect_launches("film_attn_pt train from video", video_launches, {"vgg_block1": 3})
-    if not all(np.isfinite(losses + norms)):
-        raise AssertionError(f"train from video: losses {losses}, grad norms {norms}")
-    if any(t.requires_grad or t.grad is not None for t in tree_leaves(stem)):
-        raise AssertionError("train from video: a gradient reached the frozen stem")
-    with torch.no_grad():
-        stem_ms = time_ms(lambda: stem_fn(normalize_video(batch["video"])), 3, 1)
+    check_losses("film_attn_pt train from video", losses, norms, falls=False)
+    check_stem_untouched("film_attn_pt train from video", stem_fn.args)
+    stem_ms = stem_ms_of(stem_fn, batch["video"])
     log(f"  (c) in {time.perf_counter() - t0:.1f} s; the stem alone {stem_ms:.1f} ms (CUDA"
         f" events), {stem_ms / video_ms:.3f} of a {video_ms:.1f} ms step; vgg_block1 1"
         f" launch a step")
-    return video_launches, {"features_ms": feat_ms, "video_ms": video_ms, "stem_ms": stem_ms}
+    return video_launches, feat_ms, video_ms, stem_ms
+
+
+def train_time_multi_hop(dev):
+    """(d): the eval.sh preset from bf16 features, 5 steps on one batch (the
+    fifth profiled), the LSTM kernel never launched -> ms/step."""
+    cfg = TIME_MULTI_HOP_CFG
+    B, T = 16, cfg.max_num_frames
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(24)
+    batch = tree_to(train_batch(B, T, cfg.max_q_len, cfg.vocab_size, cfg.num_classes, 25), dev)
+    batch["v_features"] = seeded_features(B, T, cfg, gen, dev)
+    label = f"(d) time_multi_hop train step from bf16 features, batch {B} T{T}"
+    losses, norms, ms, launches, params = train_preset(dev, cfg, label, batch, None, 5, 5)
+    expect_launches("time_multi_hop train from features", launches, {})
+    check_losses("time_multi_hop train from features", losses, norms)
+    hop_ms = fwd_bwd_ms(params, lambda: film_values_all_frames(
+        params, batch["question"], batch["q_len"], T, cfg), iters=1, warmup=False)
+    log(f"  (d) in {time.perf_counter() - t0:.1f} s; loss {losses[0]:.4f} -> {losses[-1]:.4f}"
+        f" over 5 steps on one batch; the plain hop encoder's LSTM chain and hops, forward and"
+        f" backward alone {hop_ms:.1f} ms, {hop_ms / ms:.3f} of a step")
+    return ms
+
+
+def train_mac(dev, stem_fn):
+    """(e): MAC at batch 32 T35 with dropout, from bf16 features (6 steps) and
+    from uint8 video through the stem (5 steps), each on one batch, the LSTM
+    kernel never launched -> (launches over the video form's counted steps,
+    features ms/step, video ms/step, stem ms)."""
+    cfg = MAC_CFG
+    B, T = 32, cfg.max_num_frames
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(26)
+    batch = tree_to(train_batch(B, T, cfg.max_q_len, cfg.vocab_size, cfg.num_classes, 27), dev)
+    batch["v_features"] = seeded_features(B, T, cfg, gen, dev)
+    losses, norms, feat_ms, launches, _ = train_preset(
+        dev, cfg, f"(e) mac train step from bf16 features, batch {B} T{T}", batch, None, 6, 5)
+    expect_launches("mac train from features", launches, {})
+    check_losses("mac train from features", losses, norms)
+    log(f"  (e) features in {time.perf_counter() - t0:.1f} s; loss {losses[0]:.4f} ->"
+        f" {losses[-1]:.4f} over 6 steps on one batch")
+    del batch
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    batch = tree_to(train_batch(B, T, cfg.max_q_len, cfg.vocab_size, cfg.num_classes, 28), dev)
+    batch["video"] = seeded_video(B, T, gen, dev)
+    losses, norms, video_ms, video_launches, _ = train_preset(
+        dev, cfg, f"(e) mac train step from uint8 video, batch {B} T{T}", batch, stem_fn, 5, 5)
+    expect_launches("mac train from video", video_launches, {"vgg_block1": 3})
+    check_losses("mac train from video", losses, norms)
+    check_stem_untouched("mac train from video", stem_fn.args)
+    stem_ms = stem_ms_of(stem_fn, batch["video"])
+    log(f"  (e) video in {time.perf_counter() - t0:.1f} s; loss {losses[0]:.4f} ->"
+        f" {losses[-1]:.4f} over 5 steps; the stem alone {stem_ms:.1f} ms (CUDA events),"
+        f" {stem_ms / video_ms:.3f} of a {video_ms:.1f} ms step; vgg_block1 1 launch a step")
+    return video_launches, feat_ms, video_ms, stem_ms
+
+
+def train(dev):
+    """(a)-(e) -> (launches over (c)'s and (e)'s counted steps, {label:
+    (batch, ms/step)}, {label: stem ms})."""
+    t0 = time.perf_counter()
+    train_parity(dev)
+    log(f"  (a) in {time.perf_counter() - t0:.1f} s")
+
+    sgen = torch.Generator().manual_seed(STEM_SEED)
+    stem = [tree_to(t, dev) for t in (init_vgg_partial(sgen),
+                                      *init_obj_detector(
+                                          sgen, num_filters=FILM_ATTN_CFG.num_input_channels))]
+    stem_fn = functools.partial(stem_features, *stem, dtype=torch.bfloat16, use_kernel=True)
+    film_launches, film_feat, film_video, film_stem = train_film_attn(dev, stem_fn)
+    tmh_ms = train_time_multi_hop(dev)
+    torch.cuda.empty_cache()
+    mac_launches, mac_feat, mac_video, mac_stem = train_mac(dev, stem_fn)
+    launches = {k: film_launches[k] + mac_launches[k] for k in film_launches}
+    ms = {"film_attn_pt from features": (32, film_feat),
+          "film_attn_pt from video": (32, film_video),
+          "time_multi_hop from features": (16, tmh_ms), "mac from features": (32, mac_feat),
+          "mac from video": (32, mac_video)}
+    return launches, ms, {"film_attn_pt": film_stem, "mac": mac_stem}
 
 
 def main():
@@ -1369,14 +1499,15 @@ def main():
         + f"; worst kernel-vs-plain |dprob| {worst:.3e}")
 
     log("phase train")
-    train_launches, trained = train(dev)
+    t0 = time.perf_counter()
+    train_launches, trained, stem_ms = train(dev)
     for name, n in train_launches.items():
         launches[name] += n
-    log(f"  training on {card}: from features {trained['features_ms']:.1f} ms/step"
-        f" ({TRAIN_BATCH * 1e3 / trained['features_ms']:.2f} videos/s), from video"
-        f" {trained['video_ms']:.1f} ms/step"
-        f" ({TRAIN_BATCH * 1e3 / trained['video_ms']:.2f} videos/s),"
-        f" the stem {trained['stem_ms']:.1f} ms of it")
+    log(f"  training on {card} (phase {time.perf_counter() - t0:.1f} s), ms/step (training"
+        " videos/s): " + ", ".join(f"{k} {t:.1f} ({b * 1e3 / t:.2f})"
+                                   for k, (b, t) in trained.items())
+        + "; the stem's ms of a video step: "
+        + ", ".join(f"{k} {t:.1f}" for k, t in stem_ms.items()))
 
     def entry(name, row, err):
         src, repl = REPO_SOURCE[name]

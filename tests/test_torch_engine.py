@@ -212,7 +212,7 @@ print(len(mods), bad)
 assert not bad, bad
 for want in ('kernels.lstm', 'models.q_only_lstm', 'models.time_multi_hop',
              'models.v_only_cnn2d_lstm', 'models.concat2d', 'models.mac', 'ops.video',
-             'stem', 'stem.vgg', 'stem.obj_detector', 'kernels.vgg_block1'):
+             'stem', 'stem.vgg', 'stem.obj_detector', 'kernels.vgg_block1', 'cli.common'):
     assert 'videonavqa_tpu_torch.' + want in mods, want
 assert len(mods) >= 35, len(mods)
 """

@@ -496,3 +496,30 @@ def test_film_attn_refuses_a_hidden_size_its_reencode_kernel_does_not_take():
     with pytest.raises(ValueError, match="hidden size 128"):
         reenc_mod.check_shape(2, 8)
     reenc_mod.check_shape(2, 128)
+
+
+@pytest.mark.parametrize("grad_enabled, requires_grad, error", [
+    (True, True, "no backward pass"),   # autograd would train through the kernel
+    (False, True, "expected a CUDA tensor"),   # no_grad and inference_mode: served
+    (True, False, "expected a CUDA tensor"),
+])
+def test_kernel_input_check_refuses_inputs_that_need_a_gradient(grad_enabled, requires_grad,
+                                                                 error):
+    """A kernel's outputs carry no grad_fn: with autograd recording, an input
+    that requires grad is refused before anything else is checked."""
+    t = torch.zeros(4, requires_grad=requires_grad)
+    with torch.set_grad_enabled(grad_enabled):
+        with pytest.raises((RuntimeError, ValueError), match=error):
+            _build.require(t, "x", torch.float32)
+
+
+def test_kernel_wrapper_refuses_inputs_that_require_grad():
+    """The LSTM wrapper on tensors off the CPU (meta here) goes to the kernel's
+    input checks, which refuse a train forward's xw (computed from W_ih)."""
+    m = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device="meta")
+    xw = m(5, 2, 32).requires_grad_(True)
+    args = (m(32, 8), m(32), m(2, dtype=torch.int32), m(2, 8), m(2, 8))
+    with pytest.raises(RuntimeError, match="no backward pass"):
+        lstm_mod.lstm(xw, *args)
+    with torch.no_grad(), pytest.raises(ValueError, match="expected a CUDA tensor"):
+        lstm_mod.lstm(xw, *args)

@@ -1,4 +1,6 @@
 """The port's train step (film_attn_pt) against the JAX package's, on the CPU.
+(tests/test_torch_train_zoo.py holds time_multi_hop's and MAC's with the
+helpers here.)
 
 Inputs are made with numpy from a seed; the JAX weights are bridged into the
 port with ``params_from_jax``. The JAX side runs jitted, except the bf16
@@ -33,10 +35,12 @@ from videonavqa_tpu_torch.ops import norm
 from videonavqa_tpu_torch.train import loss, step
 from videonavqa_tpu_torch.utils.checkpoint import params_from_jax
 
-# The small film_attn_pt of tests/test_torch_film_attn.py.
+# The small film_attn_pt of tests/test_torch_film_attn.py; time_multi_hop takes
+# the same widths, and MAC those of tests/test_mac_golden.py (mac_dim 8, 3 steps).
 SMALL = dict(num_classes=7, vocab_size=19, embed_size=8, hidden_size=8, at_hidden_size=8,
              num_res_blocks=2, num_res_block_channels=16, num_input_channels=12,
-             num_tail_channels=4, max_num_frames=6, max_q_len=9, compute_dtype="float32")
+             num_tail_channels=4, mac_dim=8, mac_max_step=3, max_num_frames=6, max_q_len=9,
+             compute_dtype="float32")
 NORM_ATOL = 1e-6
 GOLDEN_ATOL = 5e-4        # measured: 3.1e-4 (fc_attn_1/bias)
 GOLDEN_TIGHT_ATOL = 2e-5  # measured: 1.0e-6 over the other params, 3.0e-8 over the BN state
@@ -174,10 +178,9 @@ def test_clip_grads_matches_jax(clip_value, clamp, scale):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_init(**extra):
-    jcfg = JaxConfig(**{**SMALL, **extra})
-    jp, js = jax.jit(jax_get_model("film_attn_pt").init, static_argnums=1)(
-        jax.random.PRNGKey(0), jcfg)
+def _jax_init(model="film_attn_pt", **extra):
+    jcfg = JaxConfig(**{**SMALL, **extra, "model": model})
+    jp, js = jax.jit(jax_get_model(model).init, static_argnums=1)(jax.random.PRNGKey(0), jcfg)
     return jcfg, jp, js
 
 
@@ -207,14 +210,16 @@ def _max_diff(a_tree, b_tree, skip=()):
     a = dict(step.tree_items(a_tree))
     b = dict(step.tree_items(b_tree))
     assert sorted(a) == sorted(b)
-    return max(float(np.max(np.abs(np.asarray(a[k]) - np.asarray(b[k]))))
-               for k in a if k not in skip)
+    return max((float(np.max(np.abs(np.asarray(a[k]) - np.asarray(b[k]))))
+                for k in a if k not in skip), default=0.0)
 
 
 def _port_tree_as_jax(tree):
     """Port (OIHW) tensors -> numpy in the JAX layout (HWIO) for comparison."""
     if isinstance(tree, dict):
         return {k: _port_tree_as_jax(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_port_tree_as_jax(v) for v in tree]
     a = tree.detach().numpy()
     return a.transpose(2, 3, 1, 0) if a.ndim == 4 else a
 
@@ -314,10 +319,12 @@ def test_bf16_train_forward_matches_jax_op_by_op():
                                    atol=BF16_STATE_ATOL)
 
 
-def test_train_step_from_video_runs_the_stem_without_gradient():
+@pytest.mark.parametrize("model", ["film_attn_pt", "time_multi_hop", "mac"])
+def test_train_step_from_video_runs_the_stem_without_gradient(model):
     """The video form: frames /255, then ``stem_fn`` under no_grad, then the
-    same step as from its features."""
-    _, jp, js = _jax_init()
+    same step as from its features (MAC's dropout masks from the same
+    generator seed in both)."""
+    _, jp, js = _jax_init(model)
     b = _batch(8)
     r = np.random.default_rng(9)
     video = r.integers(0, 256, (3, 6, 4, 5, 3)).astype(np.uint8)
@@ -333,13 +340,14 @@ def test_train_step_from_video_runs_the_stem_without_gradient():
                        stem_fn)):
         params, state = _bridge(jp, js)
         opt = step.make_optimizer(params, 1e-3)
-        train = step.make_train_step(get_model("film_attn_pt"), ModelConfig(**SMALL), opt,
+        train = step.make_train_step(get_model(model), ModelConfig(**SMALL, model=model), opt,
                                      reduction="sum", clip_value=1.0, stem_fn=fn)
-        new_state, m = train(params, state, _t(batch))
+        new_state, m = train(params, state, _t(batch), torch.Generator().manual_seed(3))
         results.append((float(m["loss"]), params, new_state))
     assert seen == [(torch.float32, float(video.max()) / 255.0, False)]
     assert results[0][0] == results[1][0]
-    assert _max_diff(_port_tree_as_jax(results[0][1]), _port_tree_as_jax(results[1][1])) == 0.0
+    for k in (1, 2):   # params and state
+        assert _max_diff(_port_tree_as_jax(results[0][k]), _port_tree_as_jax(results[1][k])) == 0.0
 
 
 def test_train_step_refuses_params_that_are_not_the_optimizers():
@@ -352,7 +360,8 @@ def test_train_step_refuses_params_that_are_not_the_optimizers():
         train(other, state, _t(_batch(0)))
 
 
-@pytest.mark.parametrize("model", sorted(set(MODEL_REGISTRY) - {"film_attn_pt"}))
+@pytest.mark.parametrize("model", sorted(set(MODEL_REGISTRY)
+                                          - {"film_attn_pt", "time_multi_hop", "mac"}))
 def test_every_other_model_refuses_train(model):
     with pytest.raises(NotImplementedError, match="eval forward"):
         get_model(model).apply({}, {}, {}, ModelConfig(model=model), train=True)

@@ -114,7 +114,13 @@ def stream_ptr(device: torch.device) -> ctypes.c_void_p:
 
 def require(t: torch.Tensor, name: str, dtype, shape=None, device=None) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of this dtype and shape
-    (and on ``device``, where given)."""
+    (and on ``device``, where given), and unless autograd would need a
+    gradient through it: no kernel has a backward pass, and its outputs carry
+    no ``grad_fn``, so training on them would leave the gradients of the
+    tensors before it silently zero."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        raise RuntimeError(f"{name}: the kernel has no backward pass, and this input requires"
+                           " grad; train through the plain version (train=True forwards do)")
     if t.device.type != "cuda" or (device is not None and t.device != device):
         raise ValueError(f"{name}: expected a CUDA tensor on {device or 'cuda'}, got {t.device}")
     if t.dtype != dtype:

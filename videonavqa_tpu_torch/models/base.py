@@ -6,8 +6,9 @@ A model is a pair of functions over plain dictionaries of tensors:
     apply(params, state, batch, cfg, *, train, generator)
                                            -> (logits [B, num_classes], new_state)
 
-``generator`` is the ``torch.Generator`` of a model that draws at eval (the
-question-only LSTM's initial state); the others ignore it.
+``generator`` is the ``torch.Generator`` of a model that draws: the
+question-only LSTM's initial state (at eval too) and MAC's train-time dropout
+masks; the others ignore it.
 
 ``state`` holds BatchNorm running statistics and, after an int8 calibration
 pass, the trunk's ``int8_scales`` and ``int8_wq``. ``batch`` is a dict with

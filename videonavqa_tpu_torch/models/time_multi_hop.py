@@ -1,4 +1,4 @@
-"""Time multi-hop FiLM model, eval forward (the port of models/time_multi_hop.py).
+"""Time multi-hop FiLM model (the port of models/time_multi_hop.py).
 
 The FiLM trunk and global max-pool tail, with the FiLM values decoded per
 res-block per frame by a multi-hop attention decoder over the question LSTM
@@ -16,6 +16,12 @@ chained in one call (one kernel launch a forward with
 frames, once over the folded [T*B] rows.
 The conv trunk then runs once over the folded [B*T] batch.
 
+The train forward (``train=True``) runs the plain LSTM chain and the plain
+trunk in ``compute_dtype`` through autograd, whatever
+``cfg.use_pallas_kernels`` says, as the JAX package does: the LSTM kernel has
+no backward pass. The trunk's frame BatchNorm then takes batch statistics
+and returns the new running ones.
+
 The softmax over words runs to the *batch's* max q_len: positions beyond an
 example's own q_len have rnn_states = 0, so their logit is the
 fc_hidden_attn bias; positions at t >= max(q_lens) are masked with -inf.
@@ -26,7 +32,7 @@ from __future__ import annotations
 import torch
 
 from videonavqa_tpu_torch.kernels import lstm as lstm_kernels
-from videonavqa_tpu_torch.models.base import DTYPES, eval_only, register_model
+from videonavqa_tpu_torch.models.base import DTYPES, register_model
 from videonavqa_tpu_torch.models.film import film_trunk, init_film_trunk
 from videonavqa_tpu_torch.ops import initializers as init
 from videonavqa_tpu_torch.ops.conv import conv2d
@@ -56,9 +62,11 @@ def init_fn(gen, cfg, device):
     return tree_to(params, device), tree_to({"trunk": trunk_state}, device)
 
 
-def film_values_all_frames(params, q, q_lens, num_frames, cfg):
+def film_values_all_frames(params, q, q_lens, num_frames, cfg, *, use_kernel=False):
     """Per-frame FiLM values [B, T, 2*C*N]: block k's slice [2kC, 2(k+1)C) is
-    taken from block k's own decode, the layout film_trunk slices."""
+    taken from block k's own decode, the layout film_trunk slices. The LSTM
+    chain over the frames is one kernel launch with ``use_kernel``, else the
+    plain loop."""
     B, Tq = q.shape
     ch = cfg.num_res_block_channels
     emb = embedding(params["embed"], q, padding_idx=0)
@@ -66,7 +74,7 @@ def film_values_all_frames(params, q, q_lens, num_frames, cfg):
     xw = linear({"weight": enc["w_ih"], "bias": enc["b_ih"]}, emb).transpose(0, 1).contiguous()
     w_hh, b_hh = enc["w_hh"].float().contiguous(), enc["b_hh"].float().contiguous()
     lens = q_lens.to(torch.int32)
-    run = lstm_kernels.lstm_frames if cfg.use_pallas_kernels else lstm_kernels.lstm_frames_plain
+    run = lstm_kernels.lstm_frames if use_kernel else lstm_kernels.lstm_frames_plain
     zeros = torch.zeros((B, cfg.hidden_size), dtype=torch.float32, device=q.device)
     states, _, _ = run(xw, w_hh, b_hh, lens, zeros, zeros, num_frames)   # [T, Tq, B, H]
     # frames folded into the rows: [T*B, Tq, H]
@@ -84,12 +92,12 @@ def film_values_all_frames(params, q, q_lens, num_frames, cfg):
 
 
 def apply_fn(params, state, batch, cfg, *, train=False, generator=None):
-    eval_only(train)
     feats, v_lens = batch["v_features"], batch["v_len"]
     B, T = feats.shape[:2]
-    films = film_values_all_frames(params, batch["question"], batch["q_len"], T, cfg)
+    films = film_values_all_frames(params, batch["question"], batch["q_len"], T, cfg,
+                                   use_kernel=cfg.use_pallas_kernels and not train)
     x, trunk_state = film_trunk(params["trunk"], state["trunk"], feats, films,
-                                length_mask(v_lens, T), cfg)
+                                length_mask(v_lens, T), cfg, train=train)
     x = torch.relu(conv2d(params["c1x1_tail"], x.reshape(B * T, *x.shape[2:]),
                           dtype=DTYPES[cfg.compute_dtype]))
     # the temporal max commutes with the CHW flatten: pool channels-last and

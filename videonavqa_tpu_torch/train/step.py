@@ -90,8 +90,8 @@ def forward(spec, cfg, params, state, batch, generator=None):
 
 def make_train_step(spec, cfg, optimizer, *, class_weights=None, reduction="mean",
                     clip_value=None, elementwise_clamp=None, stem_fn=None):
-    """(params, state, batch) -> (new_state, metrics), updating the leaves of
-    ``params`` in place; they must be the tensors ``optimizer`` holds
+    """(params, state, batch, generator=None) -> (new_state, metrics), updating
+    the leaves of ``params`` in place; they must be the tensors ``optimizer`` holds
     (``make_optimizer(params, ...)``). ``batch`` also holds ``label`` [B].
 
     ``stem_fn`` (video [B, T, 160, 208, 3] in [0, 1] -> features
@@ -99,16 +99,22 @@ def make_train_step(spec, cfg, optimizer, *, class_weights=None, reduction="mean
     through the frozen stem, under no_grad: its weights are no parameters
     here. A leaf the loss does not reach (a frozen 1x1 conv) gets a zero
     gradient, as it does under jax.grad. metrics: ``loss``, ``hits``,
-    ``preds`` and ``grad_norm``, the global norm after clipping."""
+    ``preds`` and ``grad_norm``, the global norm after clipping.
+
+    ``generator`` (a ``torch.Generator`` on the batch's device) feeds the
+    train forward's random draws (MAC's dropout masks), as the JAX step's
+    ``rng`` does; the harness gives each batch its own. A model that draws
+    nothing ignores it."""
     leaves = [p for group in optimizer.param_groups for p in group["params"]]
 
-    def step(params, state, batch):
+    def step(params, state, batch, generator=None):
         if len(tree_leaves(params)) != len(leaves) or any(
                 a is not b for a, b in zip(tree_leaves(params), leaves)):
             raise ValueError("make_train_step: params are not the optimizer's tensors")
         model_batch = _model_batch(spec, cfg, batch, stem_fn)
         optimizer.zero_grad(set_to_none=True)
-        logits, new_state = spec.apply(params, state, model_batch, cfg, train=True)
+        logits, new_state = spec.apply(params, state, model_batch, cfg, train=True,
+                                       generator=generator)
         loss = cross_entropy_loss(logits, batch["label"], class_weights=class_weights,
                                   reduction=reduction)
         loss.backward()
