@@ -215,7 +215,8 @@ def test_eval_step_widens_fp8_features():
     jb = dict(_jax(b), v_features=jnp.asarray(b["v_features"]).astype(jnp.float8_e4m3fn))
     want, _ = jax.jit(lambda p, s, b: jax_forward(jspec, jcfg, p, s, b, jax.random.PRNGKey(1),
                                                   train=False))(jp, js, jb)
-    tb = dict(_torch(b), v_features=torch.from_numpy(b["v_features"]).to(torch.float8_e4m3fn))
+    tb = dict(_torch(b), v_features=torch.from_numpy(b["v_features"]).to(torch.float8_e4m3fn),
+              label=torch.tensor([0, 1, 2]))   # the eval step's loss takes labels
     out = make_eval_step(get_model("film_attn_pt"), cfg)(params, state, tb)
     np.testing.assert_allclose(out["logits"].numpy(), np.asarray(want), atol=1e-5)
     np.testing.assert_array_equal(out["preds"].numpy(), np.asarray(want).argmax(-1))

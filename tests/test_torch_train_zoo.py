@@ -1,6 +1,10 @@
-"""The port's train steps of time_multi_hop and MAC against the JAX package's,
-on the CPU, with the helpers of tests/test_torch_train.py (its small widths;
-MAC at mac_dim 8 and 3 steps, as tests/test_mac_golden.py).
+"""The port's train steps of time_multi_hop, MAC and the question-only LSTM
+against the JAX package's, on the CPU, with the helpers of
+tests/test_torch_train.py (its small widths; MAC at mac_dim 8 and 3 steps, as
+tests/test_mac_golden.py). The question-only LSTM's golden (mean CE with
+class weights, no clip) draws its (h0, c0) every step, the port given JAX's
+draws; it holds each loss and step 1's grad_norm to rtol 1e-5 and the
+parameters to GOLDEN_TIGHT_ATOL.
 
 Bounds: each 3-step golden (time_multi_hop: sum CE, clip 1.0; MAC: mean CE,
 clip 1.0, the +-1 element clamp, no dropout; Adam 1e-3) holds each loss and
@@ -23,6 +27,7 @@ import torch
 from test_torch_train import (
     GOLDEN_ATOL, GOLDEN_TIGHT_ATOL, SMALL, _batch, _bridge, _j, _jax_init, _max_diff,
     _port_tree_as_jax, _t)
+from test_torch_train_frame_models import video_batch
 
 from videonavqa_tpu.cli.common import mac_lr_for_epoch as jax_mac_lr_for_epoch
 from videonavqa_tpu.models import ModelConfig as JaxConfig
@@ -33,6 +38,7 @@ from videonavqa_tpu_torch.cli.common import TRAIN_STEP_OPTIONS, mac_lr_for_epoch
 from videonavqa_tpu_torch.kernels import lstm as lstm_kernels
 from videonavqa_tpu_torch.models import ModelConfig, get_model
 from videonavqa_tpu_torch.models import mac as mac_mod
+from videonavqa_tpu_torch.models import q_only_lstm
 from videonavqa_tpu_torch.train import loss, step
 
 # Leaves whose gradient is zero in exact arithmetic: a bias added to every
@@ -111,6 +117,83 @@ def test_train_step_matches_jax_for_three_steps(model):
             assert d.size == 0 or d.max() <= GOLDEN_TIGHT_ATOL, k
     assert _max_diff(_port_tree_as_jax(state), js) <= GOLDEN_TIGHT_ATOL
     assert all(p.requires_grad and p.is_leaf for p in step.tree_leaves(params))
+
+
+def jax_initial_state(key, B, hidden):
+    """The question-only LSTM's (h0, c0) as the JAX model draws them from its rng."""
+    k_h, k_c = jax.random.split(key)
+    return tuple(torch.from_numpy(np.array(jax.random.normal(k, (B, hidden))))
+                 for k in (k_h, k_c))
+
+
+def test_q_only_lstm_train_step_matches_jax_for_three_steps(monkeypatch):
+    """The question-only harness's step (mean loss, class weights on, no clip;
+    Adam 1e-3 here) for three steps, (h0, c0) drawn, the port given JAX's
+    draws. The padding row of the embedding gets no gradient and stays zero."""
+    jcfg, jp, js, cfg = _setup("lstm")
+    params, state = _bridge(jp, js)
+    weights = (np.random.default_rng(17).random(SMALL["num_classes"]) + 0.25).astype(np.float32)
+    opts = dict(TRAIN_STEP_OPTIONS["lstm"], class_weights=weights)
+    jopt = jstep.make_optimizer(1e-3)
+    jopt_state = jopt.init(jp)
+    jtrain = jstep.make_train_step(jax_get_model("lstm"), jcfg, jopt, donate=False,
+                                   **{**opts, "class_weights": jnp.asarray(weights)})
+    train = step.make_train_step(get_model("lstm"), cfg, step.make_optimizer(params, 1e-3),
+                                 **{**opts, "class_weights": torch.from_numpy(weights)})
+    given = [jax_initial_state(jax.random.PRNGKey(it), 3, SMALL["hidden_size"])
+             for it in range(3)]
+    drawn = []
+
+    def jax_states(generator, shape, device):
+        drawn.append((generator is not None, tuple(shape)))
+        return given[len(drawn) - 1]
+
+    monkeypatch.setattr(q_only_lstm, "initial_state", jax_states)
+    for it in range(3):
+        b = _batch(it)
+        jp, js, jopt_state, jm = jtrain(jp, js, jopt_state, _j(b), jax.random.PRNGKey(it))
+        _, m = train(params, state, _t(b), torch.Generator().manual_seed(it))
+        # measured: losses 1.1e-7, grad_norm 7.1e-8
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=1e-5)
+        np.testing.assert_array_equal(m["preds"].numpy(), np.asarray(jm["preds"]))
+        if it == 0:
+            np.testing.assert_allclose(float(m["grad_norm"]), float(jm["grad_norm"]),
+                                       rtol=1e-5)
+    assert drawn == [(True, (3, SMALL["hidden_size"]))] * 3
+    got = _port_tree_as_jax(params)
+    assert _max_diff(got, jp) <= GOLDEN_TIGHT_ATOL   # measured 6.0e-8
+    assert not params["embed"]["weight"][0].any() and not np.asarray(jp["embed"]["weight"][0]).any()
+
+
+def test_q_only_initial_state_repeats_for_a_seed_and_falls_back_to_seed_0():
+    draw = lambda gen: q_only_lstm.initial_state(gen, (4, 6), torch.device("cpu"))
+    h0, c0 = draw(torch.Generator().manual_seed(3))
+    assert h0.shape == c0.shape == (4, 6) and h0.dtype == torch.float32
+    assert not torch.equal(h0, c0)
+    again = draw(torch.Generator().manual_seed(3))
+    assert torch.equal(h0, again[0]) and torch.equal(c0, again[1])
+    for a, b in zip(draw(None), draw(torch.Generator().manual_seed(0))):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("train", [True, False])
+def test_q_only_lstm_draws_its_state_in_train_and_eval(monkeypatch, train):
+    """Both modes draw (h0, c0) through ``initial_state`` from the caller's generator."""
+    _, jp, js, cfg = _setup("lstm")
+    params, state = _bridge(jp, js)
+    gen = torch.Generator().manual_seed(4)
+    seen = []
+    draw = q_only_lstm.initial_state
+
+    def recorded(generator, shape, device):
+        seen.append(generator)
+        return draw(generator, shape, device)
+
+    monkeypatch.setattr(q_only_lstm, "initial_state", recorded)
+    with torch.set_grad_enabled(train):
+        logits, _ = get_model("lstm").apply(params, state, _t(_batch(18)), cfg, train=train,
+                                            generator=gen)
+    assert seen == [gen] and logits.shape == (3, SMALL["num_classes"])
 
 
 def test_time_multi_hop_bf16_train_forward_matches_jax_op_by_op():
@@ -279,7 +362,8 @@ def test_mac_remat_gives_the_same_gradients(monkeypatch, mac_dropout):
     assert any(float(g.abs().max()) > 0 for g in on.values())
 
 
-@pytest.mark.parametrize("model", ["time_multi_hop", "mac"])
+@pytest.mark.parametrize("model", ["time_multi_hop", "mac", "v_only_cnn2d_lstm", "concat2d",
+                                   "lstm"])
 def test_train_forward_reaches_no_kernel(monkeypatch, model):
     """With use_pallas_kernels on, the train step runs no LSTM kernel entry
     (they have no backward pass), while the eval forward does reach one."""
@@ -291,7 +375,8 @@ def test_train_forward_reaches_no_kernel(monkeypatch, model):
 
     for name in ("lstm", "lstm_frames", "_launch"):
         monkeypatch.setattr(lstm_kernels, name, refuse)
-    b = _t(_batch(14))
+    b = _t(video_batch(14, T=2) if get_model(model).needs_video and not get_model(model).uses_stem
+           else _batch(14))
     train = step.make_train_step(get_model(model), cfg, step.make_optimizer(params, 1e-3),
                                  **TRAIN_STEP_OPTIONS[model])
     _, m = train(params, state, b, torch.Generator().manual_seed(0))

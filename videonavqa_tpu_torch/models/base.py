@@ -7,8 +7,8 @@ A model is a pair of functions over plain dictionaries of tensors:
                                            -> (logits [B, num_classes], new_state)
 
 ``generator`` is the ``torch.Generator`` of a model that draws: the
-question-only LSTM's initial state (at eval too) and MAC's train-time dropout
-masks; the others ignore it.
+question-only LSTM's initial state (at eval too), and MAC's and concat2d's
+train-time dropout masks; the others ignore it.
 
 ``state`` holds BatchNorm running statistics and, after an int8 calibration
 pass, the trunk's ``int8_scales`` and ``int8_wq``. ``batch`` is a dict with
@@ -28,11 +28,6 @@ import torch
 from videonavqa_tpu_torch.utils import constants as C
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
-def eval_only(train):
-    if train:
-        raise NotImplementedError("the port has only the eval forward (train=False)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,17 +1,21 @@
-"""Question-only LSTM classifier, eval forward (the port of models/q_only_lstm.py).
+"""Question-only LSTM classifier (the port of models/q_only_lstm.py).
 
 Embedding(pad 0) -> one masked LSTM -> last valid state -> Linear.
 
-The reference draws (h0, c0) from randn on every batch, at eval too. Here
-they come from the ``torch.Generator`` the caller passes down (the engine
-holds one); ``apply_with_state`` is the forward from given (h0, c0).
+The reference draws (h0, c0) from randn on every batch, in train mode and at
+eval alike. Here ``initial_state`` draws them from the ``torch.Generator``
+the caller passes down (the train step's, the eval step's or the engine's);
+``apply_with_state`` is the forward from given (h0, c0). The embedding's
+row 0 is padding: it reads as zero and gets no gradient, so it stays zero
+under training. The LSTM runs plain in train mode (the kernel serves the
+eval forward only: it has no backward pass).
 """
 
 from __future__ import annotations
 
 import torch
 
-from videonavqa_tpu_torch.models.base import eval_only, register_model
+from videonavqa_tpu_torch.models.base import register_model
 from videonavqa_tpu_torch.ops import initializers as init
 from videonavqa_tpu_torch.ops.linear import embedding, linear
 from videonavqa_tpu_torch.ops.lstm import last_valid, lstm
@@ -29,23 +33,29 @@ def init_fn(gen, cfg, device):
     return tree_to(params, device), {}
 
 
-def apply_with_state(params, batch, cfg, h0, c0):
+def initial_state(generator, shape, device):
+    """(h0, c0), each [shape] f32 standard normal, drawn from ``generator``;
+    without one, from a generator on ``device`` seeded 0 (the JAX model falls
+    back to PRNGKey(0))."""
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    h0 = torch.randn(shape, generator=generator, device=device)
+    c0 = torch.randn(shape, generator=generator, device=device)
+    return h0, c0
+
+
+def apply_with_state(params, batch, cfg, h0, c0, *, train=False):
     """logits [B, num_classes] from given h0, c0 [B, hidden]."""
     emb = embedding(params["embed"], batch["question"], padding_idx=0)
     outs, _ = lstm(params["lstm"], emb, batch["q_len"], h0, c0,
-                   use_kernel=cfg.use_pallas_kernels)
+                   use_kernel=cfg.use_pallas_kernels and not train)
     return linear(params["out_linear"], last_valid(outs, batch["q_len"]))
 
 
 def apply_fn(params, state, batch, cfg, *, train=False, generator=None):
-    eval_only(train)
     q = batch["question"]
-    if generator is None:
-        generator = torch.Generator(device=q.device).manual_seed(0)
-    shape = (q.shape[0], cfg.hidden_size)
-    h0 = torch.randn(shape, generator=generator, device=q.device)
-    c0 = torch.randn(shape, generator=generator, device=q.device)
-    return apply_with_state(params, batch, cfg, h0, c0), state
+    h0, c0 = initial_state(generator, (q.shape[0], cfg.hidden_size), q.device)
+    return apply_with_state(params, batch, cfg, h0, c0, train=train), state
 
 
 register_model("lstm", init_fn, apply_fn, needs_video=False, needs_question=True,

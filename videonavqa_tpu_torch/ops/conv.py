@@ -35,7 +35,18 @@ def conv2d(params, x, *, dtype=None):
 
 def max_pool2d(x):
     """2x2 max pool, stride 2, over H and W of x [..., H, W, C] (floor mode:
-    an odd last row or column is dropped)."""
+    an odd last row or column is dropped).
+
+    Where autograd records, ``F.max_pool2d`` on the channels-last view: its
+    gradient goes to the first maximum of a window in row-major order, as
+    XLA's and the reference's do (``amax``'s would split it among tied
+    maxima, which flat regions of frames make). Elsewhere (serving, the
+    frozen stem) one ``amax`` over the windows gives the same values without
+    the indices ``F.max_pool2d`` writes on the card, which made the stem's
+    forward slower (PERF.md, section 6)."""
     H, W, C = x.shape[-3:]
+    if torch.is_grad_enabled() and x.requires_grad:
+        y = F.max_pool2d(x.reshape(-1, H, W, C).permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+        return y.reshape(*x.shape[:-3], H // 2, W // 2, C)
     x = x[..., :H // 2 * 2, :W // 2 * 2, :]
     return x.reshape(*x.shape[:-3], H // 2, 2, W // 2, 2, C).amax(dim=(-4, -2))

@@ -1,5 +1,5 @@
-"""The train step and the eval forward (the counterparts of the JAX package's
-train/step.py: make_train_step, _forward and make_eval_step).
+"""The train step, the eval forward and the eval step (the counterparts of the
+JAX package's train/step.py: make_train_step, _forward and make_eval_step).
 
 One train step: the frozen stem when the batch holds raw video, the model's
 train forward, the cross-entropy loss, the backward pass through autograd,
@@ -79,12 +79,14 @@ def _model_batch(spec, cfg, batch, stem_fn):
     return batch
 
 
-def forward(spec, cfg, params, state, batch, generator=None):
+def forward(spec, cfg, params, state, batch, generator=None, stem_fn=None):
     """Eval forward -> (logits, new_state). fp8 e4m3 cached features are
-    widened to the compute dtype first; raw video goes through as it is (the
-    model divides uint8 frames by 255). ``generator`` feeds a model that
-    draws at eval (the question-only LSTM's initial state)."""
-    return spec.apply(params, state, _model_batch(spec, cfg, batch, None), cfg, train=False,
+    widened to the compute dtype first; raw video goes through ``stem_fn``
+    for a stem model without features (as in ``make_train_step``), or else
+    as it is (a model that takes video divides uint8 frames by 255).
+    ``generator`` feeds a model that draws at eval (the question-only LSTM's
+    initial state)."""
+    return spec.apply(params, state, _model_batch(spec, cfg, batch, stem_fn), cfg, train=False,
                       generator=generator)
 
 
@@ -102,7 +104,8 @@ def make_train_step(spec, cfg, optimizer, *, class_weights=None, reduction="mean
     ``preds`` and ``grad_norm``, the global norm after clipping.
 
     ``generator`` (a ``torch.Generator`` on the batch's device) feeds the
-    train forward's random draws (MAC's dropout masks), as the JAX step's
+    train forward's random draws (MAC's and concat2d's dropout masks, the
+    question-only LSTM's (h0, c0)), as the JAX step's
     ``rng`` does; the harness gives each batch its own. A model that draws
     nothing ignores it."""
     leaves = [p for group in optimizer.param_groups for p in group["params"]]
@@ -131,12 +134,25 @@ def make_train_step(spec, cfg, optimizer, *, class_weights=None, reduction="mean
     return step
 
 
-def make_eval_step(spec, cfg, generator=None):
-    """(params, state, batch) -> {'logits', 'preds'}, with no state update."""
+def make_eval_step(spec, cfg, generator=None, *, class_weights=None, reduction="mean",
+                   stem_fn=None):
+    """(params, state, batch) -> {'loss', 'hits', 'preds', 'logits'}, under
+    inference mode with no state update, as the JAX package's eval step.
+
+    ``loss`` is the cross-entropy over the rows the batch's optional
+    ``valid`` mask keeps; ``hits`` counts every row, padding included (the
+    harness slices padding rows off ``preds`` itself). ``stem_fn`` takes a
+    batch of raw video through the frozen stem, as in ``make_train_step``.
+    ``generator`` is the one every call draws from (the question-only LSTM's
+    (h0, c0))."""
 
     def step(params, state, batch):
         with torch.inference_mode():
-            logits, _ = forward(spec, cfg, params, state, batch, generator)
-        return {"logits": logits, "preds": torch.argmax(logits, dim=-1)}
+            logits, _ = forward(spec, cfg, params, state, batch, generator, stem_fn)
+            loss = cross_entropy_loss(logits, batch["label"], class_weights=class_weights,
+                                      reduction=reduction, valid=batch.get("valid"))
+            preds = torch.argmax(logits, dim=-1)
+            return {"loss": loss, "hits": torch.sum(preds == batch["label"]),
+                    "preds": preds, "logits": logits}
 
     return step
