@@ -91,7 +91,23 @@ kernel's plain version):
              on the kernel route (the LSTM kernel 1, 2 and 1 launches a
              forward, counted) and once on the plain route: the losses
              within EVAL_LOSS_RTOL, the hits equal but on rows whose top-2
-             logit margin is under ARGMAX_MARGIN.
+             logit margin is under ARGMAX_MARGIN;
+7. harness — the training entry points as a user runs them (cli/), on a
+             synthetic npy dataset written to a temporary directory (64
+             train, 32 val and 32 test videos of up to 140 frames, v_len up
+             to 35; ~1 GB, removed afterwards), each run's launches counted
+             from 0: q_and_v_eval for film_attn_pt at its eval.sh preset
+             through the native VNR loader with frame buckets, kernels on,
+             one epoch (2 train steps from raw video, the stem's vgg_block1
+             in each, and 1 val batch through vgg_block1, film_reencode and
+             attn_tail) with an epoch checkpoint and a JSONL stream; the same
+             resumed from its e0_ checkpoint with --val_only, whose val loss
+             must match within RESUME_LOSS_RTOL and its hits and predictions
+             exactly; q_and_v_eval for concat2d through the Python loader
+             (lstm twice a val batch); v_only_eval cnn2d_lstm; q_only_eval
+             lstm at batch 32 for 2 epochs. Every loss finite, every JSONL
+             stream with its epoch events; each run's wall time and
+             examples/s printed.
 
 Run one kernel's check alone (it builds only that source), e.g.
 ``python3 -c "import torch, chip_smoke as cs; cs.check_vgg_block1(torch.device('cuda'))"``.
@@ -103,19 +119,26 @@ the line before it holds the per-kernel JSON record.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
 import json
+import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from videonavqa_tpu_torch.cli import common as harness_mod
+from videonavqa_tpu_torch.cli import q_and_v_eval, q_only_eval, v_only_eval
 from videonavqa_tpu_torch.cli.common import PRESET_L_RATE, TRAIN_STEP_OPTIONS
+from videonavqa_tpu_torch.data.synthetic import generate_synthetic_dataset
 from videonavqa_tpu_torch.kernels import _build
 from videonavqa_tpu_torch.kernels import attn_tail as attn_mod
 from videonavqa_tpu_torch.kernels import film_reencode as reenc_mod
@@ -1668,6 +1691,119 @@ def eval_steps(dev):
     return total
 
 
+# The harness phase's runs: (label, entry point, arguments, kernels that must
+# launch at least this often in the run). film_attn_pt at its eval.sh preset
+# (5 blocks x 1024 channels, batch 32, sum loss, lr 1e-4) through the native
+# loader with frame buckets: the stem's vgg_block1 once a train step and once
+# a val batch, the re-encode and the tail once a val batch.
+FILM_PRESET = ["--model", "film_attn_pt", "--num_res_blocks", "5",
+               "--num_res_block_channels", "1024", "--batch_size", "32",
+               "--loss_reduction", "sum", "--l_rate", "1e-4", "--use_pallas_kernels", "true",
+               "--use_vnr", "true", "--bucket_frames", "true"]
+HARNESS_DATA = dict(num_houses=4, trajs_per_house=32, seed=0, video_format="npy",
+                    max_frames=140)   # 64 train, 32 val, 32 test examples; v_len to 35
+RESUME_LOSS_RTOL = 1e-6
+
+
+@contextlib.contextmanager
+def recorded_epochs():
+    """[(train, summary)] of every Harness.run_epoch inside the block."""
+    seen = []
+    orig = harness_mod.Harness.run_epoch
+
+    def run_epoch(self, *a, **k):
+        out = orig(self, *a, **k)
+        seen.append((k["train"], out[1]))
+        return out
+
+    harness_mod.Harness.run_epoch = run_epoch
+    try:
+        yield seen
+    finally:
+        harness_mod.Harness.run_epoch = orig
+
+
+def run_entry(label, main_fn, argv, want, metrics_file):
+    """Run one entry point on the card, its launches counted from 0 ->
+    (launches, [(train, summary)]). Raises where a kernel of ``want``
+    ({kernel: least count}) launched fewer times, where a loss is not finite,
+    or where the JSONL stream lacks an epoch event."""
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    with recorded_epochs() as seen:
+        main_fn(argv + ["--metrics_file", metrics_file])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    for name, least in want.items():
+        if launches[name] < least:
+            raise AssertionError(f"{label}: {name} launched {launches[name]} times,"
+                                 f" expected at least {least}")
+    for train, summary in seen:
+        if not math.isfinite(summary["loss"]) or summary["num_examples"] < 1:
+            raise AssertionError(f"{label}: epoch summary {summary['loss']} over"
+                                 f" {summary['num_examples']} examples")
+    with open(metrics_file) as f:
+        events = [json.loads(line)["event"] for line in f]
+    need = {"run_start", "eval_epoch"} | ({"train_epoch"} if any(t for t, _ in seen) else set())
+    if not need <= set(events):
+        raise AssertionError(f"{label}: JSONL events {sorted(set(events))} lack {need}")
+    rates = ", ".join(f"{'train' if t else 'val'} {s['examples_per_sec']:.2f} ex/s"
+                      for t, s in seen)
+    log(f"  {label}: {wall:.1f} s wall; {rates}; launches "
+        + ", ".join(f"{k} {v}" for k, v in launches.items() if v))
+    return launches, seen
+
+
+def harness(card):
+    """Phase 7: the training entry points on the card, from a synthetic npy
+    dataset written here (HARNESS_DATA, ~1 GB, removed afterwards).
+    -> launches summed over every run."""
+    total = dict.fromkeys(COUNTERS, 0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_harness_") as tmp:
+        t0 = time.perf_counter()
+        data = os.path.join(tmp, "data")
+        generate_synthetic_dataset(data, **HARNESS_DATA)
+        log(f"  wrote the dataset ({HARNESS_DATA}) in {time.perf_counter() - t0:.1f} s")
+        ckpt_path = os.path.join(tmp, "film.npz")
+        common = ["--data_dir", data]
+        runs = [
+            ("q_and_v_eval film_attn_pt, eval.sh preset, VNR loader, 1 epoch",
+             q_and_v_eval.main, FILM_PRESET + common + ["--checkpoint_path", ckpt_path],
+             {"vgg_block1": 3, "film_reencode": 1, "attn_tail": 1}),
+            ("the same resumed from e0_, --val_only",
+             q_and_v_eval.main, FILM_PRESET + common + [
+                 "--checkpoint_path", os.path.join(tmp, "e0_film.npz"), "--val_only", "true"],
+             {"vgg_block1": 1, "film_reencode": 1, "attn_tail": 1}),
+            ("q_and_v_eval concat2d, Python loader, 1 epoch",
+             q_and_v_eval.main, ["--model", "concat2d", "--batch_size", "32",
+                                 "--use_pallas_kernels", "true"] + common, {"lstm": 2}),
+            ("v_only_eval cnn2d_lstm, 1 epoch", v_only_eval.main,
+             ["--model", "cnn2d_lstm"] + common, {}),
+            ("q_only_eval lstm, batch 32, 2 epochs", q_only_eval.main,
+             ["--model", "lstm", "--batch_size", "32", "--num_epochs", "2",
+              "--stats_after_every", "1"] + common, {}),
+        ]
+        summaries = []
+        for i, (label, main_fn, argv, want) in enumerate(runs):
+            launches, seen = run_entry(label, main_fn, argv, want,
+                                          os.path.join(tmp, f"metrics_{i}.jsonl"))
+            total = {k: total[k] + launches[k] for k in total}
+            summaries.append(seen)
+        first = [s for t, s in summaries[0] if not t][0]
+        resumed = [s for t, s in summaries[1] if not t][0]
+        err = abs(resumed["loss"] - first["loss"]) / abs(first["loss"])
+        log(f"  resumed --val_only: val loss {resumed['loss']:.7f} against"
+            f" {first['loss']:.7f} (rel. {err:.2e}, bound {RESUME_LOSS_RTOL}), hits"
+            f" {resumed['hit']} / {first['hit']}")
+        if err > RESUME_LOSS_RTOL or resumed["hit"] != first["hit"] or \
+                not np.array_equal(resumed["y_pred"], first["y_pred"]):
+            raise AssertionError("the resumed --val_only run does not reproduce the validation")
+    log(f"  harness phase on {card} in {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -1729,6 +1865,10 @@ def main():
     for name, n in eval_steps(dev).items():
         launches[name] += n
     log(f"  (g) in {time.perf_counter() - t0:.1f} s")
+
+    log("phase harness")
+    for name, n in harness(card).items():
+        launches[name] += n
 
     def entry(name, row, err):
         src, repl = REPO_SOURCE[name]

@@ -210,9 +210,14 @@ bad = sorted(m for m in sys.modules
              or m == 'videonavqa_tpu' or m.startswith('videonavqa_tpu.'))
 print(len(mods), bad)
 assert not bad, bad
+# the card's machine may lack these: nothing imports them at import time
+absent = sorted(m for m in ('cv2', 'ml_dtypes', 'zstandard', 'optax') if m in sys.modules)
+assert not absent, absent
 for want in ('kernels.lstm', 'models.q_only_lstm', 'models.time_multi_hop',
              'models.v_only_cnn2d_lstm', 'models.concat2d', 'models.mac', 'ops.video',
-             'stem', 'stem.vgg', 'stem.obj_detector', 'kernels.vgg_block1', 'cli.common'):
+             'stem', 'stem.vgg', 'stem.obj_detector', 'kernels.vgg_block1', 'cli.common',
+             'data.pipeline', 'data.vnr', 'data.prefetch', 'utils.logging',
+             'cli.q_and_v_eval', 'cli.v_only_eval', 'cli.q_only_eval'):
     assert 'videonavqa_tpu_torch.' + want in mods, want
 assert len(mods) >= 35, len(mods)
 """

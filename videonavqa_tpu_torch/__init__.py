@@ -13,11 +13,18 @@ the JAX package's so each function's counterpart is easy to find:
 - ``stem/``     — the frozen visual stem: VGG-16 partial (block 1 through
                   the fused ``vgg_block1`` kernel, or plain) and the object
                   detector's features.
-- ``train/``    — the eval forward.
+- ``train/``    — the train step, the eval forward and step, the loss and
+                  the metrics.
 - ``serve/``    — ``InferenceEngine`` over precomputed frozen-stem features,
                   or from raw uint8 video through the stem (``from_video``).
-- ``utils/``    — constants, the JAX-checkpoint weight bridge and device
-                  selection.
+- ``data/``     — datasets on disk, the Python and native (VNR) batch
+                  loaders, frame buckets, prefetching to the card.
+- ``cli/``      — the training harness and its entry points
+                  (``q_and_v_eval``, ``v_only_eval``, ``q_only_eval``) and the
+                  dataset tools (``make_synthetic_data``, ``pack_dataset``).
+- ``utils/``    — constants, checkpoints in the JAX package's format (both
+                  ways, with Adam's state), the stem's importers, JSONL
+                  metrics and device selection.
 
 Public tensors keep the JAX layouts: video ``[B, T, 160, 208, 3]`` and
 features ``[B, T, 10, 13, C]`` (channels last), questions ``[B, 56]``. Conv

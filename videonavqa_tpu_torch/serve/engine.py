@@ -29,14 +29,12 @@ import torch
 from videonavqa_tpu_torch.models import get_model
 from videonavqa_tpu_torch.models.base import DTYPES
 from videonavqa_tpu_torch.ops.video import normalize_video
-from videonavqa_tpu_torch.stem import init_obj_detector, init_vgg_partial, stem_features
+from videonavqa_tpu_torch.stem import (
+    STEM_SEED, init_obj_detector, init_vgg_partial, stem_features)
 from videonavqa_tpu_torch.train.step import forward
 from videonavqa_tpu_torch.utils import constants as C
 from videonavqa_tpu_torch.utils.checkpoint import load_jax_checkpoint
 from videonavqa_tpu_torch.utils.device import resolve_device, tree_to
-
-# The seed number of the JAX package's random frozen stem (cli/common.py load_stem).
-STEM_SEED = 1234
 
 
 class InferenceEngine:

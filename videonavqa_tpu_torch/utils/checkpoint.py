@@ -1,27 +1,54 @@
-"""The weight bridge: JAX-package checkpoints into the port's parameter dicts.
+"""Checkpoints in the JAX package's file format, in both directions, with
+Adam's state.
 
-A JAX checkpoint is one .npz of '/'-joined pytree paths (``params/...``,
-``state/...``, ``opt/...``) plus a JSON ``__meta__`` entry. It is read here
-with numpy alone. Layouts: conv kernels go from HWIO to OIHW (every 4-D
-leaf, the calibrated ``int8_wq`` kernels included); Linear and LSTM weights
-are already ``[out, in]`` and pass as they are, as do ``int8_scales``. A list
-in the JAX pytree (MAC's twelve ``position_aware`` linears) is saved under the
-keys ``0``, ``1``, ...; it comes back as a list. ``stem_from_jax`` carries the
-frozen stem's trees (as numpy) across the same way.
+A checkpoint is one .npz of '/'-joined pytree paths (``params/...``,
+``state/...``, ``opt/...``) plus a JSON ``__meta__`` entry, read and written
+with numpy alone, so the JAX package loads a checkpoint the port wrote and
+the port loads one the JAX package wrote. Layouts: conv kernels are HWIO in
+the file and OIHW in the port (every 4-D leaf, the calibrated ``int8_wq``
+kernels included); Linear and LSTM weights are ``[out, in]`` on both sides,
+as are ``int8_scales``. A list (MAC's twelve ``position_aware`` linears) is
+stored under the keys ``0``, ``1``, ... and comes back as a list.
+
+The optimizer is optax's ``inject_hyperparams(adam)`` in the JAX package and
+``torch.optim.Adam`` here. Its state maps leaf by leaf: ``count`` is
+``step``, ``mu`` is ``exp_avg`` and ``nu`` is ``exp_avg_sq``, with the same
+transposes; the hyperparameters (``learning_rate``, ``b1``, ``b2``, ``eps``)
+are the param group's ``lr``, ``betas`` and ``eps``. Restoring sets the
+learning rate from the checkpoint, as a restored optax state carries its own.
+
+``epoch_path`` names an epoch's file (``e{N}_`` before the basename);
+``save_checkpoint_async`` snapshots to the host at once and writes on a
+background thread; ``wait_for_pending_saves`` waits for those writes.
+``stem_from_jax`` carries the frozen stem's trees (as numpy) across.
 """
 
 from __future__ import annotations
 
+import io
 import json
+import os
+import threading
+import zipfile
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from videonavqa_tpu_torch.train.step import tree_items
 from videonavqa_tpu_torch.utils.device import tree_to
+
+# optax's inject_hyperparams(adam) state, as the JAX package's flatten_tree
+# names its leaves
+OPT_COUNT = "opt/.count"
+OPT_HYPER = "opt/.hyperparams/"
+OPT_INNER_COUNT = "opt/.inner_state/0/.count"
+OPT_MU = "opt/.inner_state/0/.mu/"
+OPT_NU = "opt/.inner_state/0/.nu/"
 
 
 def read_npz(path):
-    """(flat {path: array}, meta dict) of a JAX-package checkpoint."""
+    """(flat {path: array}, meta dict) of a checkpoint."""
     with np.load(path, allow_pickle=False) as z:
         flat = {k: z[k] for k in z.files}
     meta_raw = flat.pop("__meta__", None)
@@ -35,6 +62,12 @@ def _to_torch(a: np.ndarray) -> torch.Tensor:
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(np.array(a).view(np.uint16)).view(torch.bfloat16)
     return torch.from_numpy(np.array(a))
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t`` in the file's layout (OIHW -> HWIO)."""
+    a = t.detach().to("cpu", copy=True).numpy()
+    return np.ascontiguousarray(a.transpose(2, 3, 1, 0)) if a.ndim == 4 else a
 
 
 def _nest(flat, prefix):
@@ -67,7 +100,7 @@ def params_from_jax(flat: dict[str, np.ndarray]):
 
 
 def load_jax_checkpoint(path, device):
-    """(params, state, meta) of a JAX checkpoint, on ``device``."""
+    """(params, state, meta) of a checkpoint, as new tensors on ``device``."""
     flat, meta = read_npz(path)
     params, state = params_from_jax(flat)
     return tree_to(params, device), tree_to(state, device), meta
@@ -85,3 +118,168 @@ def stem_from_jax(vgg_np, det_params_np, det_state_np, device):
     weights that ``load_stem`` imports). HWIO conv kernels become OIHW."""
     return tuple(tree_to(_tree_to_torch(t), device)
                  for t in (vgg_np, det_params_np, det_state_np))
+
+
+# --- Adam's state ----------------------------------------------------------
+
+def _adam_group(optimizer):
+    if not isinstance(optimizer, torch.optim.Adam) or len(optimizer.param_groups) != 1:
+        raise ValueError("the checkpoint's optimizer state is one torch.optim.Adam group")
+    return optimizer.param_groups[0]
+
+
+def adam_to_flat(optimizer, params):
+    """``optimizer``'s state over ``params`` as optax's flat ``opt/...``
+    leaves. A parameter not stepped yet has zero moments; every stepped one
+    must share one step count."""
+    group = _adam_group(optimizer)
+    steps = {float(optimizer.state[p]["step"]) for _, p in tree_items(params)
+             if p in optimizer.state}
+    if len(steps) > 1:
+        raise ValueError(f"Adam's parameters were stepped unequally: {sorted(steps)}")
+    count = np.int32(steps.pop() if steps else 0)
+    b1, b2 = group["betas"]
+    flat = {OPT_COUNT: count, OPT_INNER_COUNT: count}
+    for name, value in (("b1", b1), ("b2", b2), ("eps", group["eps"]), ("eps_root", 0.0),
+                        ("learning_rate", group["lr"])):
+        flat[OPT_HYPER + name] = np.float32(value)
+    for path, p in tree_items(params):
+        st = optimizer.state.get(p)
+        for prefix, key in ((OPT_MU, "exp_avg"), (OPT_NU, "exp_avg_sq")):
+            flat[prefix + path] = _to_numpy(st[key] if st else torch.zeros_like(p))
+    return flat
+
+
+def _leaf(flat, key, like):
+    if key not in flat:
+        raise KeyError(f"checkpoint missing leaf {key!r}")
+    t = _to_torch(flat[key])
+    if tuple(t.shape) != tuple(like.shape):
+        raise ValueError(f"checkpoint leaf {key!r} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(like.shape)}")
+    return t.to(device=like.device, dtype=like.dtype)
+
+
+def _stored(current, stored):
+    """The file keeps a hyperparameter in f32: ``current`` where it rounds to
+    the stored value, else the stored value."""
+    return current if float(np.float32(current)) == stored else stored
+
+
+def adam_from_flat(optimizer, params, flat):
+    """Set ``optimizer``'s moments, step and hyperparameters (the learning
+    rate included) from optax's flat ``opt/...`` leaves."""
+    group = _adam_group(optimizer)
+    hyper = {name: float(flat[OPT_HYPER + name])
+             for name in ("learning_rate", "b1", "b2", "eps", "eps_root")}
+    if hyper["eps_root"] != 0.0:
+        raise ValueError("torch.optim.Adam has no eps_root; the checkpoint's is "
+                         f"{hyper['eps_root']}")
+    group["lr"] = _stored(group["lr"], hyper["learning_rate"])
+    group["betas"] = tuple(_stored(b, hyper[k]) for b, k in zip(group["betas"], ("b1", "b2")))
+    group["eps"] = _stored(group["eps"], hyper["eps"])
+    count = int(flat[OPT_INNER_COUNT])
+    for path, p in tree_items(params):
+        optimizer.state[p] = {"step": torch.tensor(float(count), dtype=torch.float32),
+                              "exp_avg": _leaf(flat, OPT_MU + path, p),
+                              "exp_avg_sq": _leaf(flat, OPT_NU + path, p)}
+
+
+# --- save and load ---------------------------------------------------------
+
+def _gather_flat(params, state, optimizer, meta):
+    """A host snapshot of every leaf in the file's layout."""
+    flat = {"params/" + k: _to_numpy(v) for k, v in tree_items(params)}
+    if state is not None:
+        flat.update({"state/" + k: _to_numpy(v) for k, v in tree_items(state)})
+    if optimizer is not None:
+        flat.update(adam_to_flat(optimizer, params))
+    flat["__meta__"] = np.frombuffer(json.dumps(meta or {}).encode("utf-8"), dtype=np.uint8)
+    return flat
+
+
+def _write_flat(path, flat):
+    buf = io.BytesIO()
+    np.savez(buf, **flat)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(buf.getvalue())
+    os.replace(tmp, path)  # atomic against a failure mid-write
+
+
+def save_checkpoint(path, *, params, state=None, optimizer=None, meta=None):
+    """Write ``params`` (and ``state``, and ``optimizer``'s Adam state) to
+    ``path`` in the JAX package's format."""
+    _write_flat(path, _gather_flat(params, state, optimizer, meta))
+
+
+def _is_torch_save(path: str) -> bool:
+    """True for a file ``torch.save`` wrote: a zip with a ``data.pkl`` member
+    (the npz checkpoints are zips too, but carry ``__meta__.npy``), or a bare
+    pickle of an older torch."""
+    if zipfile.is_zipfile(path):
+        with zipfile.ZipFile(path) as z:
+            names = z.namelist()
+        if any(n.split("/")[-1] == "__meta__.npy" for n in names):
+            return False
+        return any(n.endswith("data.pkl") for n in names)
+    with open(path, "rb") as f:
+        return f.read(1) == b"\x80"
+
+
+def load_checkpoint(path, *, params, state=None, optimizer=None):
+    """Copy a checkpoint into the live tensors, in place -> its meta dict.
+
+    ``params`` (and ``state``) are the templates, as in the JAX package: each
+    leaf must be in the file with the same shape; ``state`` is left as it is
+    where the file has none, and so is ``optimizer`` where it has no
+    ``opt/`` leaves. A reference checkpoint written by ``torch.save`` is
+    refused: its importer is not ported yet (ROADMAP A9)."""
+    if _is_torch_save(path):
+        raise NotImplementedError(
+            f"{path} is a torch.save checkpoint of the reference; importing those "
+            "(the JAX package's utils/zoo_import.py) is not ported yet (ROADMAP A9)")
+    flat, meta = read_npz(path)
+    with torch.no_grad():
+        for prefix, tree in (("params/", params), ("state/", state)):
+            if tree is None or (prefix == "state/" and
+                                not any(k.startswith(prefix) for k in flat)):
+                continue
+            for k, t in tree_items(tree):
+                t.copy_(_leaf(flat, prefix + k, t))
+    if optimizer is not None and any(k.startswith("opt/") for k in flat):
+        adam_from_flat(optimizer, params, flat)
+    return meta
+
+
+def epoch_path(checkpoint_path: str, epoch: int) -> str:
+    """'e{N}_' before the basename."""
+    d, b = os.path.split(checkpoint_path)
+    return os.path.join(d, f"e{epoch}_{b}")
+
+
+_pending = []
+_pending_lock = threading.Lock()
+_executor = None
+
+
+def save_checkpoint_async(path, *, params, state=None, optimizer=None, meta=None):
+    """Snapshot every leaf to the host now (later steps update the tensors in
+    place), then serialize and write on a background thread. -> the future."""
+    global _executor
+    flat = _gather_flat(params, state, optimizer, meta)
+    with _pending_lock:
+        if _executor is None:
+            _executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="ckpt")
+        fut = _executor.submit(_write_flat, path, flat)
+        _pending.append(fut)
+    return fut
+
+
+def wait_for_pending_saves():
+    """Wait until every queued save is on disk; raises the first failure."""
+    with _pending_lock:
+        pending = list(_pending)
+        _pending.clear()
+    for fut in pending:
+        fut.result()
