@@ -107,7 +107,31 @@ kernel's plain version):
              (lstm twice a val batch); v_only_eval cnn2d_lstm; q_only_eval
              lstm at batch 32 for 2 epochs. Every loss finite, every JSONL
              stream with its epoch events; each run's wall time and
-             examples/s printed.
+             examples/s printed;
+8. daemon  — the serving half on the harness phase's dataset:
+             cli/extract_features.py over the test split (32 videos) in bf16
+             and in fp8 (vgg_block1 counted; two videos' stored planes equal
+             the stem's features, bit for bit); cli/serve.py's daemon
+             (build_server on port 0, warmed up) at the eval.sh preset from
+             the harness phase's e0_ checkpoint over each cache, with the
+             int8 trunk, the kernels, auto frame buckets, max_batch 32 and
+             pipeline depth 2: closed-loop HTTP clients in another process
+             (serve/loadgen.py), 64 of them and at least 256 requests, a
+             /reload sent mid-load (the weights version must rise and later
+             requests be answered on the new weights), over the bf16 cache;
+             16 clients and 64 requests over the fp8 cache. Every answer
+             must be its micro-batch's row; each micro-batch is run again
+             through engine.run_batch, and each request that was the longest
+             of its micro-batch alone (the reference's attention mask makes
+             an answer depend on its batch's longest video), within
+             PROB_ATOL, the argmax equal where the margin exceeds
+             ARGMAX_MARGIN; film_reencode and attn_tail must launch once a
+             forward and matmul_int8_fused five times a non-calibrating one.
+             Each daemon is then shut down under a burst of 64 requests:
+             every accepted request answered, the others refused at the
+             closed socket. Then cli/predict.py on one stored video through
+             the stem. Prints requests/s, p50 / p95 / p99 latency, the
+             average batch, avg_forward_ms and one micro-batch's idle share.
 
 Run one kernel's check alone (it builds only that source), e.g.
 ``python3 -c "import torch, chip_smoke as cs; cs.check_vgg_block1(torch.device('cuda'))"``.
@@ -129,6 +153,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -136,9 +161,14 @@ import torch
 import torch.nn.functional as F
 
 from videonavqa_tpu_torch.cli import common as harness_mod
+from videonavqa_tpu_torch.cli import extract_features as extract_mod
+from videonavqa_tpu_torch.cli import predict as predict_mod
 from videonavqa_tpu_torch.cli import q_and_v_eval, q_only_eval, v_only_eval
+from videonavqa_tpu_torch.cli import serve as serve_mod
 from videonavqa_tpu_torch.cli.common import PRESET_L_RATE, TRAIN_STEP_OPTIONS
+from videonavqa_tpu_torch.data.pipeline import DataPaths, load_json
 from videonavqa_tpu_torch.data.synthetic import generate_synthetic_dataset
+from videonavqa_tpu_torch.data.vnr import VNRBatchLoader
 from videonavqa_tpu_torch.kernels import _build
 from videonavqa_tpu_torch.kernels import attn_tail as attn_mod
 from videonavqa_tpu_torch.kernels import film_reencode as reenc_mod
@@ -156,9 +186,11 @@ from videonavqa_tpu_torch.ops.quant import (
     act_scale, conv2d_int8_prequant, quantize_act, quantize_weight_channelwise)
 from videonavqa_tpu_torch.ops.video import normalize_video
 from videonavqa_tpu_torch.serve.engine import STEM_SEED, InferenceEngine
+from videonavqa_tpu_torch.serve.loadgen import request as http
 from videonavqa_tpu_torch.stem import init_obj_detector, init_vgg_partial, stem_features
 from videonavqa_tpu_torch.train.step import (
     make_eval_step, make_optimizer, make_train_step, tree_items, tree_leaves)
+from videonavqa_tpu_torch.utils.checkpoint import save_checkpoint
 from videonavqa_tpu_torch.utils.device import tree_to
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
@@ -1756,51 +1788,371 @@ def run_entry(label, main_fn, argv, want, metrics_file):
     return launches, seen
 
 
-def harness(card):
-    """Phase 7: the training entry points on the card, from a synthetic npy
-    dataset written here (HARNESS_DATA, ~1 GB, removed afterwards).
-    -> launches summed over every run."""
-    total = dict.fromkeys(COUNTERS, 0)
+@contextlib.contextmanager
+def synthetic_dataset():
+    """(temporary directory, the HARNESS_DATA dataset in it): ~1 GB of npy
+    videos, removed afterwards."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_harness_") as tmp:
         t0 = time.perf_counter()
         data = os.path.join(tmp, "data")
         generate_synthetic_dataset(data, **HARNESS_DATA)
         log(f"  wrote the dataset ({HARNESS_DATA}) in {time.perf_counter() - t0:.1f} s")
-        ckpt_path = os.path.join(tmp, "film.npz")
-        common = ["--data_dir", data]
-        runs = [
-            ("q_and_v_eval film_attn_pt, eval.sh preset, VNR loader, 1 epoch",
-             q_and_v_eval.main, FILM_PRESET + common + ["--checkpoint_path", ckpt_path],
-             {"vgg_block1": 3, "film_reencode": 1, "attn_tail": 1}),
-            ("the same resumed from e0_, --val_only",
-             q_and_v_eval.main, FILM_PRESET + common + [
-                 "--checkpoint_path", os.path.join(tmp, "e0_film.npz"), "--val_only", "true"],
-             {"vgg_block1": 1, "film_reencode": 1, "attn_tail": 1}),
-            ("q_and_v_eval concat2d, Python loader, 1 epoch",
-             q_and_v_eval.main, ["--model", "concat2d", "--batch_size", "32",
-                                 "--use_pallas_kernels", "true"] + common, {"lstm": 2}),
-            ("v_only_eval cnn2d_lstm, 1 epoch", v_only_eval.main,
-             ["--model", "cnn2d_lstm"] + common, {}),
-            ("q_only_eval lstm, batch 32, 2 epochs", q_only_eval.main,
-             ["--model", "lstm", "--batch_size", "32", "--num_epochs", "2",
-              "--stats_after_every", "1"] + common, {}),
-        ]
-        summaries = []
-        for i, (label, main_fn, argv, want) in enumerate(runs):
-            launches, seen = run_entry(label, main_fn, argv, want,
-                                          os.path.join(tmp, f"metrics_{i}.jsonl"))
-            total = {k: total[k] + launches[k] for k in total}
-            summaries.append(seen)
-        first = [s for t, s in summaries[0] if not t][0]
-        resumed = [s for t, s in summaries[1] if not t][0]
-        err = abs(resumed["loss"] - first["loss"]) / abs(first["loss"])
-        log(f"  resumed --val_only: val loss {resumed['loss']:.7f} against"
-            f" {first['loss']:.7f} (rel. {err:.2e}, bound {RESUME_LOSS_RTOL}), hits"
-            f" {resumed['hit']} / {first['hit']}")
-        if err > RESUME_LOSS_RTOL or resumed["hit"] != first["hit"] or \
-                not np.array_equal(resumed["y_pred"], first["y_pred"]):
-            raise AssertionError("the resumed --val_only run does not reproduce the validation")
+        yield tmp, data
+
+
+def harness(card, tmp=None, data=None):
+    """Phase 7: the training entry points on the card, from the synthetic npy
+    dataset ``data`` (HARNESS_DATA; written here when not given); its
+    checkpoints go to ``tmp``. -> launches summed over every run."""
+    if data is None:
+        with synthetic_dataset() as (tmp, data):
+            return harness(card, tmp, data)
+    total = dict.fromkeys(COUNTERS, 0)
+    t0 = time.perf_counter()
+    ckpt_path = os.path.join(tmp, "film.npz")
+    common = ["--data_dir", data]
+    runs = [
+        ("q_and_v_eval film_attn_pt, eval.sh preset, VNR loader, 1 epoch",
+         q_and_v_eval.main, FILM_PRESET + common + ["--checkpoint_path", ckpt_path],
+         {"vgg_block1": 3, "film_reencode": 1, "attn_tail": 1}),
+        ("the same resumed from e0_, --val_only",
+         q_and_v_eval.main, FILM_PRESET + common + [
+             "--checkpoint_path", os.path.join(tmp, "e0_film.npz"), "--val_only", "true"],
+         {"vgg_block1": 1, "film_reencode": 1, "attn_tail": 1}),
+        ("q_and_v_eval concat2d, Python loader, 1 epoch",
+         q_and_v_eval.main, ["--model", "concat2d", "--batch_size", "32",
+                             "--use_pallas_kernels", "true"] + common, {"lstm": 2}),
+        ("v_only_eval cnn2d_lstm, 1 epoch", v_only_eval.main,
+         ["--model", "cnn2d_lstm"] + common, {}),
+        ("q_only_eval lstm, batch 32, 2 epochs", q_only_eval.main,
+         ["--model", "lstm", "--batch_size", "32", "--num_epochs", "2",
+          "--stats_after_every", "1"] + common, {}),
+    ]
+    summaries = []
+    for i, (label, main_fn, argv, want) in enumerate(runs):
+        launches, seen = run_entry(label, main_fn, argv, want,
+                                   os.path.join(tmp, f"metrics_{i}.jsonl"))
+        total = {k: total[k] + launches[k] for k in total}
+        summaries.append(seen)
+    first = [s for t, s in summaries[0] if not t][0]
+    resumed = [s for t, s in summaries[1] if not t][0]
+    err = abs(resumed["loss"] - first["loss"]) / abs(first["loss"])
+    log(f"  resumed --val_only: val loss {resumed['loss']:.7f} against"
+        f" {first['loss']:.7f} (rel. {err:.2e}, bound {RESUME_LOSS_RTOL}), hits"
+        f" {resumed['hit']} / {first['hit']}")
+    if err > RESUME_LOSS_RTOL or resumed["hit"] != first["hit"] or \
+            not np.array_equal(resumed["y_pred"], first["y_pred"]):
+        raise AssertionError("the resumed --val_only run does not reproduce the validation")
     log(f"  harness phase on {card} in {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+# The daemon phase: film_attn_pt at the eval.sh preset served over a feature
+# cache (cli/serve.py), the int8 trunk and the kernels on, auto frame buckets.
+# The clients are a process of their own (serve/loadgen.py), so that their
+# interpreter lock is not the daemon's.
+DAEMON_PRESET = ["--model", "film_attn_pt", "--num_res_blocks", "5",
+                 "--num_res_block_channels", "1024", "--int8_trunk", "true",
+                 "--use_pallas_kernels", "true", "--feature_cache", "true",
+                 "--bucket_frames", "auto", "--max_batch", "32", "--pipeline_depth", "2",
+                 "--batch_wait_ms", "5", "--port", "0"]
+DAEMON_REQUESTS, DAEMON_CLIENTS = 256, 64   # bf16 cache; more until a /reload is answered
+AFTER_RELOAD = 64                           # ... and this many requests after it
+FP8_REQUESTS, FP8_CLIENTS = 64, 16          # fp8 cache
+DRAIN_REQUESTS = 64
+VOCAB_WORDS = 133                           # word1 .. word133: the token ids 1 .. 133
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def question_text(i):
+    """A question unique to request ``i``: its first two words encode i, so
+    its tokens name the request."""
+    words = [1 + i % VOCAB_WORDS, 1 + (i // VOCAB_WORDS) % VOCAB_WORDS]
+    words += [1 + (31 * i + 7 * k) % VOCAB_WORDS for k in range(1 + i % 13)]
+    return " ".join(f"word{w}" for w in words)
+
+
+def loadgen(tmp, port, jobs, n, clients, until_file=None):
+    """Start serve/loadgen.py on ``jobs`` (a list of /predict bodies) in a
+    process of its own -> the Popen; ``collect`` reads its result."""
+    path = os.path.join(tmp, f"jobs_{port}_{n}.json")
+    with open(path, "w") as f:
+        json.dump(jobs, f)
+    cmd = [sys.executable, "-m", "videonavqa_tpu_torch.serve.loadgen", "--port", str(port),
+           "--jobs", path, "--n", str(n), "--clients", str(clients)]
+    if until_file:
+        cmd += ["--until_file", until_file]
+    return subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def collect(proc, timeout=600):
+    """(wall s, [(job index, status, body)]) of a loadgen process."""
+    out, err = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"the load generator failed ({proc.returncode}): {err[-2000:]}")
+    got = json.loads(out)
+    return got["wall_s"], got["results"]
+
+
+class Recorder:
+    """Records what a live daemon runs: each micro-batch's request keys (the
+    tokens), each request's (frames, v_len, tokens, probabilities) and the
+    calibration forwards."""
+
+    def __init__(self, engine, batcher):
+        self.engine, self.batcher = engine, batcher
+        self.batches, self.requests, self.calibrations = [], {}, 0
+        dispatch, calibrate, submit = (engine.dispatch_batch, engine._forward_calibrate,
+                                       batcher.submit)
+
+        def on_dispatch(items):
+            self.batches.append([tuple(t) for _, _, t in items])
+            return dispatch(items)
+
+        def on_calibrate(*a, **k):
+            self.calibrations += 1
+            return calibrate(*a, **k)
+
+        def on_submit(frames, v_len, tokens):
+            probs = submit(frames, v_len, tokens)
+            self.requests[tuple(tokens)] = (frames, v_len, tokens, probs)
+            return probs
+
+        engine.dispatch_batch, engine._forward_calibrate = on_dispatch, on_calibrate
+        batcher.submit = on_submit
+
+    def stop(self):
+        del self.engine.dispatch_batch, self.engine._forward_calibrate, self.batcher.submit
+
+
+def prob_errors(got, want):
+    """(max |dprob|, rows whose argmax differs where the top-2 logit margin of
+    ``want`` exceeds ARGMAX_MARGIN): log-probabilities differ as the logits do."""
+    got, want = np.asarray(got), np.asarray(want)
+    top2 = np.sort(np.log(want), axis=-1)[..., -2:]
+    wide = (top2[..., 1] - top2[..., 0]) > ARGMAX_MARGIN
+    bad = wide & (got.argmax(-1) != want.argmax(-1))
+    return float(np.abs(got - want).max()), int(bad.sum())
+
+
+def check_served(label, engine, rec, jobs, results, vocab):
+    """Every answer against its request's recorded probabilities (the same
+    top 5), each micro-batch run again through ``engine.run_batch`` (an
+    answer depends on its micro-batch's longest video: the reference's
+    attention mask) and each request that was the longest of its
+    micro-batch run alone -> max |dprob| over the re-runs."""
+    for i, status, body in results:
+        if status != 200:
+            raise AssertionError(f"{label}: request {i} answered {status}: {body}")
+        probs = rec.requests[tuple(vocab[w] for w in jobs[i]["question"].split())][3]
+        top = np.argsort(-probs)[:5]
+        if [p for _, p in body["top"]] != [float(probs[k]) for k in top]:
+            raise AssertionError(f"{label}: the answer to request {i} is not its row")
+    worst, rows, alone = 0.0, 0, 0
+    for keys in rec.batches:
+        items = [rec.requests[k][:3] for k in keys]
+        want = np.stack([rec.requests[k][3] for k in keys])
+        err, bad = prob_errors(engine.run_batch(items), want)
+        longest = max(v for _, v, _ in items)
+        for k, (f, v, t) in zip(keys, items):
+            if v == longest and alone < 64:
+                e, b = prob_errors(engine.run_batch([(f, v, t)]), rec.requests[k][3][None])
+                err, bad, alone = max(err, e), bad + b, alone + 1
+        worst, rows = max(worst, err), rows + len(keys)
+        if err > PROB_ATOL or bad:
+            raise AssertionError(f"{label}: a micro-batch run again gives max |dprob| {err:.3e}"
+                                 f" and {bad} argmax changes")
+    log(f"  {label}: {len(results)} answers equal their micro-batch rows; {len(rec.batches)}"
+        f" micro-batches ({rows} rows) and {alone} longest items alone run again through"
+        f" run_batch: max |dprob| {worst:.3e} (bound {PROB_ATOL}), argmax equal where the"
+        f" margin exceeds {ARGMAX_MARGIN}")
+    return worst
+
+
+def serve_load(label, args, tmp, jobs, n, clients, vocab, reload_at=None):
+    """Build, warm up and start a daemon, send it ``n`` of ``jobs`` (with a
+    /reload once ``reload_at`` are answered, going on until AFTER_RELOAD
+    more are), hold every answer, then drain it under a last burst.
+    -> (launches during the load, stats, requests/s, max |dprob|, one
+    profiled batch's (busy, wall) ms)."""
+    t0 = time.perf_counter()
+    engine, batcher, server = serve_mod.build_server(args)
+    engine.warmup()
+    torch.cuda.synchronize()
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    port = server.server_address[1]
+    log(f"  {label}: the daemon up in {time.perf_counter() - t0:.1f} s (built, calibrated on"
+        f" a stored example, buckets {engine.frame_buckets})")
+    rec = Recorder(engine, batcher)
+    until = None if reload_at is None else os.path.join(tmp, f"reloaded_{port}")
+    torch.cuda.synchronize()
+    reset_counters()
+    proc = loadgen(tmp, port, jobs, n, clients, until)
+    if until is not None:
+        while batcher.stats["requests"] < reload_at and proc.poll() is None:
+            time.sleep(0.002)
+        before = engine.weights_version
+        reload_reply = http(port, "/reload", {})
+        after, at = engine.weights_version, batcher.stats["requests"]
+        while batcher.stats["requests"] < at + AFTER_RELOAD and proc.poll() is None:
+            time.sleep(0.002)
+        open(until, "w").close()
+    wall, results = collect(proc)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    rec.stop()
+    stats = http(port, "/stats")[1]
+    forwards, plain = len(rec.batches), len(rec.batches) - rec.calibrations
+    log(f"  {label}: {len(results)} requests from {clients} clients (another process) in"
+        f" {wall:.2f} s ({len(results) / wall:.2f} requests/s); {forwards} micro-batches"
+        f" ({rec.calibrations} calibrating), avg batch {stats['avg_batch']:.2f},"
+        f" avg_forward_ms {stats['avg_forward_ms']:.2f}, latency p50 / p95 / p99"
+        f" {stats['latency_p50_ms']:.1f} / {stats['latency_p95_ms']:.1f} /"
+        f" {stats['latency_p99_ms']:.1f} ms; launches {launches}")
+    expect_launches(label, launches, {"film_reencode": forwards, "attn_tail": forwards,
+                                      "int8_matmul_fused": 5 * plain})
+    if stats["errors"] or stats["requests"] != len(results) or len(results) < n:
+        raise AssertionError(f"{label}: {len(results)} answers, stats {stats}")
+    if until is not None:
+        log(f"  {label}: /reload after {reload_at} answers: {reload_reply}, weights_version"
+            f" {before} -> {after}; {len(results) - at} requests answered after it,"
+            f" {rec.calibrations} calibrating forward(s) on the new weights")
+        if reload_reply[0] != 200 or after != before + 1 or rec.calibrations < 1 or \
+                len(results) - at < AFTER_RELOAD:
+            raise AssertionError(f"{label}: the reload did not swap the weights mid-load")
+    worst = check_served(label, engine, rec, jobs, results, vocab)
+    items = [rec.requests[k][:3] for k in max(rec.batches, key=len)]
+    busy, bwall, rows = device_breakdown(lambda: engine.run_batch(items), 6)
+    log(f"  {label}: one micro-batch of {len(items)} by torch.profiler: device busy {busy:.3f}"
+        f" ms of {bwall:.3f} ms wall (idle share {max(0.0, 1 - busy / bwall):.3f})")
+    for name, t in rows:
+        log(f"    {t:9.4f} ms  {name[:110]}")
+
+    # drain: stop accepting under a burst; every accepted request is answered
+    before_drain = batcher.stats["requests"]
+    proc = loadgen(tmp, port, jobs, DRAIN_REQUESTS, DRAIN_REQUESTS)
+    deadline = time.monotonic() + 120
+    while batcher.pending() < 8 and proc.poll() is None and time.monotonic() < deadline:
+        time.sleep(0.001)
+    server.shutdown()
+    left = serve_mod.drain(server, batcher)
+    _, burst = collect(proc)
+    answered = sum(s == 200 for _, s, _ in burst)
+    if left or any(s not in (200, None) for _, s, _ in burst) or \
+            batcher.stats["requests"] - before_drain != answered or batcher.stats["errors"]:
+        raise AssertionError(f"{label}: the drain lost requests ({left} pending,"
+                             f" {answered} answered, stats {batcher.stats})")
+    log(f"  {label}: drained under a burst of {DRAIN_REQUESTS}: {answered} accepted and"
+        f" answered, {DRAIN_REQUESTS - answered} refused at the closed socket; the batcher's"
+        " threads ended")
+    del engine, batcher, server, rec
+    torch.cuda.empty_cache()
+    return launches, stats, len(results) / wall, worst, (busy, bwall)
+
+
+def daemon(card, tmp=None, data=None, ckpt=None):
+    """Phase 8: the serving half on the card over the synthetic dataset
+    ``data`` (written here when not given): extract_features of the test
+    split in bf16 and fp8 (vgg_block1 counted; two videos' planes against
+    the stem, bit for bit), the daemon at the eval.sh preset over each
+    cache under load (a /reload and a drain in the bf16 run), then predict
+    from one raw video through the stem. ``ckpt``: the model's weights (the
+    harness phase's epoch checkpoint; seeded here when not given).
+    -> launches summed over the phase."""
+    if data is None:
+        with synthetic_dataset() as (tmp, data):
+            return daemon(card, tmp, data)
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(COUNTERS, 0)
+    if ckpt is None:
+        cfg = harness_mod.cfg_from_args(serve_mod.build_parser().parse_args(DAEMON_PRESET),
+                                        "film_attn_pt")
+        params, state = get_model("film_attn_pt").init(torch.Generator().manual_seed(0), cfg,
+                                                       torch.device("cpu"))
+        ckpt = os.path.join(tmp, "daemon.npz")
+        save_checkpoint(ckpt, params=params, state=state, meta={"epoch": 0})
+    with open(os.path.join(data, "vocab.json"), "w") as f:
+        json.dump({f"word{i}": i for i in range(1, VOCAB_WORDS + 1)}, f)
+    vocab = load_json(os.path.join(data, "vocab.json"))
+
+    # extraction, both dtypes, counted
+    for dtype in ("bfloat16", "float8_e4m3"):
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        extract_mod.main(["--data_dir", data, "--splits", "test", "--feature_dtype", dtype])
+        torch.cuda.synchronize()
+        launches = read_counters()
+        path = extract_mod.feature_file(data, "test", dtype)
+        loader = VNRBatchLoader(path, 1, shuffle=False, mode="test")
+        frames = sum(int(loader.example_frames(i).shape[0]) for i in range(loader.n))
+        wall = time.perf_counter() - t0
+        log(f"  extract_features --feature_dtype {dtype}: {loader.n} videos, {frames} frames in"
+            f" {wall:.2f} s ({frames / wall:.1f} frames/s), {os.path.getsize(path) / 1e6:.1f} MB;"
+            f" launches {launches}")
+        expect_launches("extract_features", launches, {"vgg_block1": None})
+        total = {k: total[k] + launches[k] for k in total}
+        # two videos' planes against the stem, chunk by chunk as extraction runs it
+        args = extract_mod.build_parser().parse_args(["--data_dir", data])
+        stem_fn = harness_mod.load_stem(args, DataPaths(data), torch.device("cuda"))
+        store, bits, _ = extract_mod.STORE_DTYPES[dtype]
+        src = VNRBatchLoader(os.path.join(data, "test.vnr"), 1, shuffle=False, mode="test")
+        chunk = extract_mod.chunk_frames(src.lengths)
+        for i in (0, src.n - 1):
+            video = torch.from_numpy(src.example_frames(i)).cuda()
+            t = video.shape[0]
+            padded = torch.zeros((-(-t // chunk) * chunk, *video.shape[1:]), dtype=torch.uint8,
+                                 device="cuda")
+            padded[:t] = video
+            want = torch.cat([stem_fn(normalize_video(c[None]))[0] for c in padded.split(chunk)])
+            want = want[:t].to(store).view(bits).cpu()
+            got = torch.from_numpy(loader.example_frames(i)).view(bits)
+            if not torch.equal(got, want):
+                raise AssertionError(f"extract_features {dtype}: video {i}'s planes are not the"
+                                     " stem's")
+        log(f"  extract_features {dtype}: videos 0 and {src.n - 1} ({chunk}-frame chunks) equal"
+            " the stem's features on the card, bit for bit")
+        loader.close()
+        src.close()
+        del stem_fn
+        torch.cuda.empty_cache()
+
+    ids = sorted(load_json(DataPaths(data).split_file)["test"])
+    rng = np.random.default_rng(17)
+    jobs = [{"example": ids[int(rng.integers(len(ids)))], "question": question_text(i)}
+            for i in range(8 * DAEMON_REQUESTS)]
+    common = DAEMON_PRESET + ["--data_dir", data, "--checkpoint_path", ckpt]
+    results = {}
+    for label, extra, n, clients, reload_at in (
+            ("daemon bf16 cache", [], DAEMON_REQUESTS, DAEMON_CLIENTS, DAEMON_REQUESTS // 4),
+            ("daemon fp8 cache", ["--feature_dtype", "float8_e4m3"], FP8_REQUESTS, FP8_CLIENTS,
+             None)):
+        args = serve_mod.build_parser().parse_args(common + extra)
+        launches, stats, rate, worst, busy = serve_load(label, args, tmp, jobs, n, clients,
+                                                        vocab, reload_at)
+        total = {k: total[k] + launches[k] for k in total}
+        results[label] = (rate, stats, worst, busy)
+
+    # predict: one stored video and one question, through the stem
+    video = os.path.join(data, "videos", ids[0] + ".npy")
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    probs = predict_mod.main(FILM_PRESET[:6] + ["--data_dir", data, "--checkpoint_path", ckpt,
+                                                "--video", video, "--question", question_text(0)])
+    torch.cuda.synchronize()
+    launches = read_counters()
+    log(f"  predict {ids[0]}: {time.perf_counter() - t0:.2f} s, launches {launches}")
+    expect_launches("predict", launches, {"vgg_block1": 1, "film_reencode": 1, "attn_tail": 1})
+    check_probs(probs[None], 1)
+    total = {k: total[k] + launches[k] for k in total}
+    log(f"  daemon phase on {card} in {time.perf_counter() - t_phase:.1f} s: "
+        + "; ".join(f"{k} {r:.2f} requests/s, p50 / p95 / p99 {s['latency_p50_ms']:.1f} /"
+                    f" {s['latency_p95_ms']:.1f} / {s['latency_p99_ms']:.1f} ms, avg batch"
+                    f" {s['avg_batch']:.2f}, avg_forward_ms {s['avg_forward_ms']:.2f}, idle share"
+                    f" {max(0.0, 1 - b / w):.3f}, max |dprob| {e:.3e}"
+                    for k, (r, s, e, (b, w)) in results.items()))
     return total
 
 
@@ -1866,9 +2218,13 @@ def main():
         launches[name] += n
     log(f"  (g) in {time.perf_counter() - t0:.1f} s")
 
-    log("phase harness")
-    for name, n in harness(card).items():
-        launches[name] += n
+    with synthetic_dataset() as (tmp, data):
+        log("phase harness")
+        for name, n in harness(card, tmp, data).items():
+            launches[name] += n
+        log("phase daemon")
+        for name, n in daemon(card, tmp, data, os.path.join(tmp, "e0_film.npz")).items():
+            launches[name] += n
 
     def entry(name, row, err):
         src, repl = REPO_SOURCE[name]

@@ -217,9 +217,11 @@ for want in ('kernels.lstm', 'models.q_only_lstm', 'models.time_multi_hop',
              'models.v_only_cnn2d_lstm', 'models.concat2d', 'models.mac', 'ops.video',
              'stem', 'stem.vgg', 'stem.obj_detector', 'kernels.vgg_block1', 'cli.common',
              'data.pipeline', 'data.vnr', 'data.prefetch', 'utils.logging',
-             'cli.q_and_v_eval', 'cli.v_only_eval', 'cli.q_only_eval'):
+             'cli.q_and_v_eval', 'cli.v_only_eval', 'cli.q_only_eval',
+             'cli.extract_features', 'cli.serve', 'cli.predict', 'serve.engine',
+             'serve.batcher', 'serve.http', 'datagen.encode', 'datagen.ontology'):
     assert 'videonavqa_tpu_torch.' + want in mods, want
-assert len(mods) >= 35, len(mods)
+assert len(mods) >= 43, len(mods)
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,

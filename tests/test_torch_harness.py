@@ -395,9 +395,11 @@ def test_mac_learning_rate_schedule_through_run_training(tiny_dir, monkeypatch,
 
 
 @pytest.mark.parametrize("main, argv, item", [
-    (q_and_v_eval.main, ["--model", "film_attn_pt", "--feature_cache", "true"], "A3"),
-    (q_and_v_eval.main, ["--model", "film_attn_pt", "--feature_dtype", "float8_e4m3"], "A3"),
-    (q_and_v_eval.main, ["--model", "film_attn_pt", "--int8_trunk", "true"], "A3"),
+    (q_and_v_eval.main, ["--model", "film_attn_pt", "--feature_cache", "true",
+                         "--int8_stem", "true"], "mutually exclusive"),
+    (q_and_v_eval.main, ["--model", "concat3d", "--feature_cache", "true"], "A6"),
+    (q_and_v_eval.main, ["--model", "film_attn_pt", "--int8_trunk", "true",
+                         "--mesh_devices", "2"], "A8"),
     (q_and_v_eval.main, ["--model", "film_attn_pt", "--int8_stem", "true"], "A7"),
     (q_and_v_eval.main, ["--model", "film_attn_pt", "--int8_stem_calibration", "absmax"],
      "A7"),

@@ -9,19 +9,25 @@ the JAX package's so each function's counterpart is easy to find:
 - ``kernels/``  — one module per ported Pallas kernel: a CUDA C++ kernel in
                   ``csrc/`` bound with ctypes, its plain PyTorch version and
                   a launch counter.
-- ``models/``   — ``ModelConfig``, the registry and six zoo models (eval).
+- ``models/``   — ``ModelConfig``, the registry and six zoo models.
 - ``stem/``     — the frozen visual stem: VGG-16 partial (block 1 through
                   the fused ``vgg_block1`` kernel, or plain) and the object
                   detector's features.
 - ``train/``    — the train step, the eval forward and step, the loss and
                   the metrics.
-- ``serve/``    — ``InferenceEngine`` over precomputed frozen-stem features,
-                  or from raw uint8 video through the stem (``from_video``).
+- ``serve/``    — ``InferenceEngine`` over precomputed frozen-stem features
+                  (a feature cache) or from raw uint8 video through the stem,
+                  the micro-batcher, the daemon's HTTP handler and a
+                  load generator for it.
 - ``data/``     — datasets on disk, the Python and native (VNR) batch
                   loaders, frame buckets, prefetching to the card.
 - ``cli/``      — the training harness and its entry points
-                  (``q_and_v_eval``, ``v_only_eval``, ``q_only_eval``) and the
-                  dataset tools (``make_synthetic_data``, ``pack_dataset``).
+                  (``q_and_v_eval``, ``v_only_eval``, ``q_only_eval``), the
+                  serving ones (``extract_features``, ``serve``, ``predict``)
+                  and the dataset tools (``make_synthetic_data``,
+                  ``pack_dataset``).
+- ``datagen/``  — copies of the JAX package's question tokenizer and answer
+                  classes.
 - ``utils/``    — constants, checkpoints in the JAX package's format (both
                   ways, with Adam's state), the stem's importers, JSONL
                   metrics and device selection.

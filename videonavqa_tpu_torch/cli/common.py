@@ -13,7 +13,12 @@ It keeps the JAX harness's behaviour:
 - epoch checkpoints (``e{N}_``) in the JAX package's format, with Adam's
   state and the train F1 in the metadata, written in the background;
 - MAC's elementwise gradient clamp and its epoch-1 lr/10 dip;
-- the same JSONL events (``utils/logging.py``).
+- the same JSONL events (``utils/logging.py``);
+- ``--feature_cache``: the frozen stem's features extracted once into
+  ``features_{split}[_fp8].fnr`` (``cli/extract_features.py``; the stem loads
+  only when a cache is missing or stale, and is dropped afterwards), then
+  training and validation from those files through the native loader;
+- ``--int8_trunk``: the FiLM trunk's dynamic int8 convs in the eval step.
 
 Flags the port does not run yet stop the run with a ``SystemExit`` that names
 the ROADMAP item, whenever they are set away from their defaults. Entry
@@ -156,25 +161,23 @@ def build_q_and_v_parser():
                         choices=["absmax", "improved"],
                         help="refused unless 'improved' (ROADMAP A7)")
     parser.add_argument("--feature_cache", type=_true, default=False,
-                        help="refused: the feature cache is not ported yet (ROADMAP A3)")
+                        help="train and validate from the frozen stem's features, extracted "
+                             "once into features_{split}.fnr (cli.extract_features)")
     parser.add_argument("--feature_dtype", type=str, default="bfloat16",
                         choices=["bfloat16", "float8_e4m3"],
-                        help="refused unless 'bfloat16' (ROADMAP A3)")
+                        help="the feature cache's dtype; fp8 halves its bytes")
     parser.add_argument("--use_pallas_kernels", type=_true, default=None,
                         help="run the eval steps through the hand-written CUDA kernels "
                              "(film re-encode, attention tail, masked LSTM); training "
                              "steps run the plain versions")
     parser.add_argument("--int8_trunk", type=_true, default=False,
-                        help="refused: the harness's dynamic int8 trunk is not ported "
-                             "yet (ROADMAP A3)")
+                        help="the FiLM trunk's convs in dynamic int8 in the eval step "
+                             "(training steps run them in --compute_dtype)")
     return parser
 
 
 # (flag, its default, the ROADMAP item that ports it)
 _REFUSED = (
-    ("feature_cache", False, "A3 (the feature cache)"),
-    ("feature_dtype", "bfloat16", "A3 (the feature cache)"),
-    ("int8_trunk", False, "A3 (the dynamic int8 trunk)"),
     ("int8_stem", False, "A7 (the int8 stem)"),
     ("int8_stem_calibration", "improved", "A7 (the int8 stem)"),
     ("mesh_devices", 0, "A8 (multi-GPU)"),
@@ -255,12 +258,20 @@ def load_stem(args, paths: DataPaths, device):
     return stem_fn
 
 
+# cached features arrive as the bits of their dtype (data/vnr.py)
+_FEATURE_BITS = {np.dtype(np.uint16): torch.bfloat16, np.dtype(np.uint8): torch.float8_e4m3fn}
+
+
 def prepare_batch(batch):
     """A numpy batch -> (dict of CPU tensors, num_valid): ``q_id`` dropped,
     a ``valid`` mask added where the batch holds padding rows; videos stay
-    uint8 (the /255 runs on the device)."""
+    uint8 (the /255 runs on the device), cached features' bits are viewed as
+    bf16 or fp8 e4m3 (fp8 is widened in the forward)."""
     num_valid = int(batch.pop("num_valid"))
     out = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items() if k != "q_id"}
+    feats = batch.get("v_features")
+    if feats is not None and feats.dtype in _FEATURE_BITS:
+        out["v_features"] = out["v_features"].view(_FEATURE_BITS[feats.dtype])
     B = out["label"].shape[0]
     if num_valid < B:
         out["valid"] = torch.arange(B) < num_valid
@@ -293,7 +304,11 @@ class Harness:
         self.labels = load_json(self.paths.labels_file)
 
         self.needs_stem = self.spec.uses_stem and getattr(args, "use_visual_features", True)
-        self.stem_fn = load_stem(args, self.paths, self.device) if self.needs_stem else None
+        # --feature_cache never runs the stem in a step; extraction loads its
+        # own stem where a cache file is missing or stale
+        cached = getattr(args, "feature_cache", False) and not q_only
+        self.stem_fn = load_stem(args, self.paths, self.device) \
+            if self.needs_stem and not cached else None
         self.class_weights = None
         self.reduction = getattr(args, "loss_reduction", "mean") or "mean"
         # every batch reseeds it (batch_seed); the eval step draws from it too
@@ -413,7 +428,24 @@ def _vnr_loaders(args, h, vnr_kw):
     return loaders["train"], loaders["val"]
 
 
+def _extract_features_once(args, h, splits):
+    """{split: feature-cache file}, extracted where missing or stale; the stem
+    loads only then, and is dropped afterwards."""
+    from videonavqa_tpu_torch.cli.extract_features import ensure_features, features_needed
+
+    missing = features_needed(args, h.paths, splits, quiet=True)
+    stem_fn = load_stem(args, h.paths, h.device) if missing else None
+    files = ensure_features(args, stem_fn, splits, h.split)
+    del stem_fn
+    if h.device.type == "cuda":
+        torch.cuda.empty_cache()
+    return files
+
+
 def run_training(args, model_name, *, q_only=False, v_only=False, clip_value=None):
+    if getattr(args, "feature_cache", False) and getattr(args, "int8_stem", False):
+        raise SystemExit("--feature_cache and --int8_stem are mutually exclusive (the cache is "
+                         "extracted with the bf16 stem)")
     h = Harness(args, model_name, q_only=q_only, v_only=v_only)
     train_ds = h.dataset("train")
     val_ds = h.dataset("val", deterministic=True)
@@ -427,7 +459,17 @@ def run_training(args, model_name, *, q_only=False, v_only=False, clip_value=Non
     # the loaders' frame_buckets: "auto" = the dataset's optimal DP edges
     fb_spec = "auto" if bucket == "auto" else (True if bucket else None)
     bucket = bool(bucket)
-    if getattr(args, "use_vnr", False) and not q_only:
+    if getattr(args, "feature_cache", False) and h.needs_stem and not q_only:
+        from videonavqa_tpu_torch.data.vnr import VNRBatchLoader
+
+        files = _extract_features_once(args, h, ("train", "val"))
+        h.needs_stem = False
+        vnr_kw = dict(seed=args.seed, bucket_by_length=bucket, frame_buckets=fb_spec)
+        train_loader = VNRBatchLoader(files["train"], args.batch_size, shuffle=True,
+                                      mode="train", **vnr_kw)
+        val_loader = VNRBatchLoader(files["val"], args.batch_size, shuffle=False, mode="val",
+                                    deterministic=not args.stochastic_eval, **vnr_kw)
+    elif getattr(args, "use_vnr", False) and not q_only:
         train_loader, val_loader = _vnr_loaders(
             args, h, dict(seed=args.seed, bucket_by_length=bucket, frame_buckets=fb_spec))
     else:

@@ -101,11 +101,13 @@ def _decode_video(path_base: str) -> np.ndarray:
     return np.stack(frames)
 
 
-def subsample_frames(video: np.ndarray, rng: np.random.RandomState):
-    """One random frame of each 4-frame bucket into a fixed 35-frame uint8
-    container -> ([35, H, W, 3], v_len)."""
+def subsample_frames(video: np.ndarray, rng: np.random.RandomState, *, dtype=np.uint8):
+    """One random frame of each 4-frame bucket into a fixed 35-frame container
+    -> ([35, H, W, C], v_len). ``dtype`` is the container's: the serving
+    daemon subsamples stored bf16 / fp8 feature planes (their uint16 / uint8
+    bits) with the same picks, without widening them."""
     T = min(video.shape[0], C.DROP_EVERY_N_FRAMES * C.MAX_ALLOWED_NUM_FRAMES_DROPPING)
-    out = np.zeros((C.MAX_ALLOWED_NUM_FRAMES_DROPPING,) + video.shape[1:], dtype=np.uint8)
+    out = np.zeros((C.MAX_ALLOWED_NUM_FRAMES_DROPPING,) + video.shape[1:], dtype=dtype)
     count = 0
     for i in range(0, T, C.DROP_EVERY_N_FRAMES):
         hi = min(i + C.DROP_EVERY_N_FRAMES, T) - 1

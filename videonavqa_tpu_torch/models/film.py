@@ -7,11 +7,15 @@ frame with a carried LSTM state (the film_hidden drift). The tail embeds each
 frame, scores it, and runs a 35-step attention LSTM over the frames.
 
 The trunk's convs run once over the folded [B*T] frame batch. The trunk has
-three modes: plain (``compute_dtype``); the f32 calibration pass, which
+these modes: plain (``compute_dtype``); the f32 calibration pass, which
 records each conv's input absmax (1.25x headroom) and pre-quantized int8
-weights into the state; and static int8 from that state, where the 1x1 convs
-take the fused int8 kernel when the folded row count is at or under
-``INT8_FUSED_MAX_ROWS``.
+weights into the state; and, under ``use_int8_trunk``, int8 in one of three
+forms, as the state allows: calibrated (absmax and int8 weights from the
+state; the 1x1 convs take the fused int8 kernel when the folded row count is
+at or under ``INT8_FUSED_MAX_ROWS``), static (an absmax but no int8 weights
+in the state: the weights quantize each call) and dynamic (no absmax: each
+conv quantizes its input by this batch's absmax, as the harness's eval step
+runs ``--int8_trunk``).
 
 The train forward (``train=True``) runs the plain trunk in ``compute_dtype``
 and the plain re-encode and attention tail, whatever
@@ -36,7 +40,8 @@ from videonavqa_tpu_torch.ops.linear import embedding, linear, linear_chw
 from videonavqa_tpu_torch.ops.masking import attn_frame_mask, length_mask, mask_invalid
 from videonavqa_tpu_torch.ops.norm import frame_batch_norm
 from videonavqa_tpu_torch.ops.quant import (
-    conv2d_int8_preq_act, conv2d_int8_prequant, quantize_weight_channelwise)
+    conv2d_int8_dynamic, conv2d_int8_preq_act, conv2d_int8_prequant, conv2d_int8_static,
+    quantize_weight_channelwise)
 from videonavqa_tpu_torch.utils import constants as C
 from videonavqa_tpu_torch.utils.device import tree_to
 
@@ -86,10 +91,11 @@ def _trunk_convs(params, state, cfg, rows, new_state, device, train=False):
         return (lambda p, x, name: conv2d(p, x, dtype=dtype)), None
 
     scales, wqs = state.get("int8_scales"), state.get("int8_wq")
-    if scales is None or wqs is None:
-        raise ValueError("the int8 trunk needs a calibrated state (int8_scales and "
-                         "int8_wq from an int8_trunk_calibrate pass); dynamic int8 "
-                         "is not ported")
+    if scales is None:   # dynamic: this batch's absmax, weights quantized each call
+        return (lambda p, x, name: conv2d_int8_dynamic(p, x, out_dtype=dtype)), None
+    if wqs is None:      # static: calibrated absmax, weights quantized each call
+        return (lambda p, x, name: conv2d_int8_static(p, x, scales[name], out_dtype=dtype)), \
+            None
 
     def conv(p, x, name):
         return conv2d_int8_prequant(wqs[name]["wq"], wqs[name]["scale"], p.get("bias"),

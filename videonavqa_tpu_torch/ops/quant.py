@@ -9,6 +9,12 @@ kernel, so the port leaves it to PyTorch.
 
 Rounding is half to even (``torch.round``), the division by the activation
 scale a true division, as in the JAX package.
+
+Three forms serve the FiLM trunk: ``conv2d_int8_prequant`` (weights and the
+activation absmax both from a calibration pass), ``conv2d_int8_static`` (a
+calibrated absmax, the weights quantized from the live ones each call) and
+``conv2d_int8_dynamic`` (both quantized each call, the activation scale from
+this batch's absmax).
 """
 
 from __future__ import annotations
@@ -36,6 +42,12 @@ def act_scale(act_absmax):
 
 def quantize_act(x, sx):
     return torch.clamp(torch.round(x.float() / sx), -127, 127).to(torch.int8)
+
+
+def quantize_act_dynamic(x):
+    """Activations -> (int8, scalar f32 scale), per-tensor absmax."""
+    sx = act_scale(torch.amax(torch.abs(x.float())))
+    return quantize_act(x, sx), sx
 
 
 def conv_i8(xq, wq):
@@ -86,3 +98,19 @@ def conv2d_int8_preq_act(wq, w_scale, bias, xq, act_absmax, *, out_dtype=torch.f
     the fused 1x1 kernel with this conv's calibrated absmax)."""
     sx = act_scale(act_absmax)
     return _dequant(conv_i8(xq, wq), sx, w_scale, bias, out_dtype)
+
+
+def conv2d_int8_static(params, x, act_absmax, *, out_dtype=torch.float32):
+    """int8 conv with a calibrated per-tensor activation absmax; the weights
+    quantize per output channel from ``params["weight"]`` each call."""
+    wq, sw = quantize_weight_channelwise(params["weight"])
+    return conv2d_int8_prequant(wq, sw, params.get("bias"), x, act_absmax,
+                                out_dtype=out_dtype)
+
+
+def conv2d_int8_dynamic(params, x, *, out_dtype=torch.float32):
+    """int8 conv with both operands quantized each call: the weights per
+    output channel, the activations per tensor from this batch's absmax."""
+    wq, sw = quantize_weight_channelwise(params["weight"])
+    xq, sx = quantize_act_dynamic(x)
+    return _dequant(conv_i8(xq, wq), sx, sw, params.get("bias"), out_dtype)

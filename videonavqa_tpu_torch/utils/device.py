@@ -22,10 +22,15 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def tree_map(fn, tree):
+    """``fn`` of each leaf of a nested dict (and list), in the same nesting."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
 def tree_to(tree, device):
     """A nested dict (and list) of tensors, moved to ``device``."""
-    if isinstance(tree, dict):
-        return {k: tree_to(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [tree_to(v, device) for v in tree]
-    return tree.to(device)
+    return tree_map(lambda t: t.to(device), tree)
