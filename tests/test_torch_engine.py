@@ -219,9 +219,12 @@ for want in ('kernels.lstm', 'models.q_only_lstm', 'models.time_multi_hop',
              'data.pipeline', 'data.vnr', 'data.prefetch', 'utils.logging',
              'cli.q_and_v_eval', 'cli.v_only_eval', 'cli.q_only_eval',
              'cli.extract_features', 'cli.serve', 'cli.predict', 'serve.engine',
-             'serve.batcher', 'serve.http', 'datagen.encode', 'datagen.ontology'):
+             'serve.batcher', 'serve.http', 'datagen.encode', 'datagen.ontology',
+             'models.v_only_cnn3d', 'models.concat3d', 'models.q_only_bow',
+             'cli.q_and_v_test', 'cli.q_only_test', 'cli.v_only_test',
+             'cli.results_analysis'):
     assert 'videonavqa_tpu_torch.' + want in mods, want
-assert len(mods) >= 43, len(mods)
+assert len(mods) >= 50, len(mods)
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,

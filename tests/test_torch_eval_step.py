@@ -171,10 +171,10 @@ def test_per_class_accuracies_match_jax():
 def _jax_harness_settings(model):
     """(reduction, clip_value, l_rate) that the JAX entry point gives
     ``model`` at its parser's defaults."""
-    if model == "v_only_cnn2d_lstm":
-        args = jax_v_only_eval.build_parser().parse_args(["--model", "cnn2d_lstm"])
-    elif model == "lstm":
-        args = jax_q_only_eval.build_parser().parse_args(["--model", "lstm"])
+    if model in ("v_only_cnn2d_lstm", "v_only_cnn3d"):
+        args = jax_v_only_eval.build_parser().parse_args(["--model", model[len("v_only_"):]])
+    elif model in ("lstm", "bow"):
+        args = jax_q_only_eval.build_parser().parse_args(["--model", model])
         # the question-only harness takes no --clip_value and passes none, and
         # sums nothing: make_train_step(..., reduction="mean")
         source = inspect.getsource(jax_q_only_eval.main)
@@ -186,7 +186,8 @@ def _jax_harness_settings(model):
     return args.loss_reduction, args.clip_value, args.l_rate
 
 
-@pytest.mark.parametrize("model", ["v_only_cnn2d_lstm", "concat2d", "lstm"])
+@pytest.mark.parametrize("model", ["v_only_cnn2d_lstm", "concat2d", "lstm", "v_only_cnn3d",
+                                   "concat3d", "bow"])
 def test_train_step_options_are_the_jax_harness_settings(model):
     reduction, clip_value, l_rate = _jax_harness_settings(model)
     want = {"reduction": reduction}

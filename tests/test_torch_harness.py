@@ -43,7 +43,8 @@ from videonavqa_tpu.train import step as jstep
 from videonavqa_tpu.utils import checkpoint as jckpt
 from videonavqa_tpu.utils import torch_import as jti
 from videonavqa_tpu_torch.cli import common as tcommon
-from videonavqa_tpu_torch.cli import q_and_v_eval, q_only_eval, v_only_eval
+from videonavqa_tpu_torch.cli import q_and_v_eval, q_and_v_test, q_only_eval, q_only_test
+from videonavqa_tpu_torch.cli import v_only_eval, v_only_test
 from videonavqa_tpu_torch.models import ModelConfig, get_model
 from videonavqa_tpu_torch.stem import stem_features
 from videonavqa_tpu_torch.train import step
@@ -397,7 +398,7 @@ def test_mac_learning_rate_schedule_through_run_training(tiny_dir, monkeypatch,
 @pytest.mark.parametrize("main, argv, item", [
     (q_and_v_eval.main, ["--model", "film_attn_pt", "--feature_cache", "true",
                          "--int8_stem", "true"], "mutually exclusive"),
-    (q_and_v_eval.main, ["--model", "concat3d", "--feature_cache", "true"], "A6"),
+    (q_and_v_test.main, ["--model", "concat3d", "--mesh_devices", "2"], "A8"),
     (q_and_v_eval.main, ["--model", "film_attn_pt", "--int8_trunk", "true",
                          "--mesh_devices", "2"], "A8"),
     (q_and_v_eval.main, ["--model", "film_attn_pt", "--int8_stem", "true"], "A7"),
@@ -407,11 +408,12 @@ def test_mac_learning_rate_schedule_through_run_training(tiny_dir, monkeypatch,
     (q_and_v_eval.main, ["--model", "film_attn_pt", "--model_parallel", "2"], "A8"),
     (q_and_v_eval.main, ["--model", "film_attn_pt", "--distributed", "true"], "A8"),
     (q_and_v_eval.main, ["--model", "film_attn_pt", "--num_processes", "2"], "A8"),
-    (q_and_v_eval.main, ["--model", "film_attn_pt", "--q_encoder", "bow"], "A6"),
-    (q_and_v_eval.main, ["--model", "film_gp_pt"], "A6"),
-    (q_and_v_eval.main, ["--model", "concat3d"], "A6"),
-    (v_only_eval.main, ["--model", "cnn3d"], "A6"),
-    (q_only_eval.main, ["--model", "bow"], "A6"),
+    (q_and_v_eval.main, ["--model", "film_attn_pt", "--q_encoder", "bow", "--int8_stem",
+                         "true"], "A7"),
+    (q_and_v_eval.main, ["--model", "film_gp_pt", "--distributed", "true"], "A8"),
+    (q_and_v_test.main, ["--model", "film_gp_pt", "--int8_stem", "true"], "A7"),
+    (v_only_test.main, ["--model", "cnn3d", "--model_parallel", "2"], "A8"),
+    (q_only_test.main, ["--model", "bow", "--process_id", "1"], "A8"),
     (q_only_eval.main, ["--model", "lstm", "--mesh_devices", "4"], "A8"),
     (q_and_v_eval.main, ["--model", "film_attn_pt", "--jax_cache_dir", "/tmp/x"], "XLA"),
 ])

@@ -519,9 +519,9 @@ def test_stale_or_missing_cache_is_refused(data):
     (["--int8_stem_calibration_video", "v.npy"], "A7"),
     (["--mesh_devices", "2"], "A8"),
     (["--model_parallel", "2"], "A8"),
-    (["--model", "v_only_cnn3d"], "A6"),
-    (["--model", "film_gp_pt"], "A6"),
-    (["--q_encoder", "bow"], "A6"),
+    (["--model", "v_only_cnn3d", "--mesh_devices", "2"], "A8"),
+    (["--model", "film_gp_pt", "--int8_stem", "true"], "A7"),
+    (["--q_encoder", "bow", "--model_parallel", "2"], "A8"),
 ])
 def test_unported_flags_exit_naming_their_item(data, extra, item):
     with pytest.raises(SystemExit, match=item):

@@ -1,6 +1,6 @@
 """The training harness shared by the entry points (the counterpart of the JAX
 package's cli/common.py): the flags, the frozen stem's weights, the batch
-feed, the epoch loop and ``run_training``.
+feed, the epoch loop, ``run_training`` and ``run_test``.
 
 It keeps the JAX harness's behaviour:
 
@@ -18,12 +18,17 @@ It keeps the JAX harness's behaviour:
   ``features_{split}[_fp8].fnr`` (``cli/extract_features.py``; the stem loads
   only when a cache is missing or stale, and is dropped afterwards), then
   training and validation from those files through the native loader;
-- ``--int8_trunk``: the FiLM trunk's dynamic int8 convs in the eval step.
+- ``--int8_trunk``: the FiLM trunk's dynamic int8 convs in the eval step;
+- the test split (``run_test``): deterministic frame picks, a checkpoint
+  required, the final partial batch padded and counted on its real rows, the
+  per-class accuracies and F1 under "Testing", and the ``t_``/``p_``/``q_``
+  dumps of targets, predictions and question types beside the checkpoint
+  (``cli/results_analysis.py`` reads them).
 
-Flags the port does not run yet stop the run with a ``SystemExit`` that names
-the ROADMAP item, whenever they are set away from their defaults. Entry
-points run on the card (``--device cuda``, the default) unless
-``--device cpu`` is given.
+Every zoo model runs. Flags the port does not run yet (the int8 stem,
+multi-GPU) stop the run with a ``SystemExit`` that names the ROADMAP item,
+whenever they are set away from their defaults. Entry points run on the card
+(``--device cuda``, the default) unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -53,22 +58,28 @@ from videonavqa_tpu_torch.utils.logging import MetricsLogger, maybe_profile
 # sets them (Harness, run_training) at the preset's --loss_reduction: every
 # q_and_v model and the video-only harness clip the global norm at 1.0, and
 # MAC clamps each gradient element to +-1 first; the question-only harness
-# clips nothing. eval.sh's presets sum the loss; the others run at their
-# parser's default, the mean. The question-only harness also turns class
+# clips nothing. eval.sh's presets (film_gp_pt, film_attn_pt, time_multi_hop)
+# sum the loss; the others run at their parser's default, the mean. The question-only harness also turns class
 # weights on by default (--use_class_weights); they come from the training
 # set's label counts, so the caller passes them, not these options.
 TRAIN_STEP_OPTIONS = {
+    "film_gp_pt": dict(reduction="sum", clip_value=1.0),
     "film_attn_pt": dict(reduction="sum", clip_value=1.0),
     "time_multi_hop": dict(reduction="sum", clip_value=1.0),
     "mac": dict(reduction="mean", clip_value=1.0, elementwise_clamp=1.0),
     "v_only_cnn2d_lstm": dict(reduction="mean", clip_value=1.0),
     "concat2d": dict(reduction="mean", clip_value=1.0),
+    "v_only_cnn3d": dict(reduction="mean", clip_value=1.0),
+    "concat3d": dict(reduction="mean", clip_value=1.0),
     "lstm": dict(reduction="mean"),
+    "bow": dict(reduction="mean"),
 }
 # The presets' learning rates (eval.sh; the others: their parser's default,
-# build_q_and_v_parser's for MAC and concat2d, v_only_eval's and q_only_eval's).
-PRESET_L_RATE = {"film_attn_pt": 1e-4, "time_multi_hop": 5e-5, "mac": 1e-4,
-                 "v_only_cnn2d_lstm": 1e-4, "concat2d": 1e-4, "lstm": 1e-5}
+# build_q_and_v_parser's for MAC and the concat models, v_only_eval's and
+# q_only_eval's).
+PRESET_L_RATE = {"film_gp_pt": 1e-4, "film_attn_pt": 1e-4, "time_multi_hop": 5e-5, "mac": 1e-4,
+                 "v_only_cnn2d_lstm": 1e-4, "concat2d": 1e-4, "v_only_cnn3d": 1e-4,
+                 "concat3d": 1e-4, "lstm": 1e-5, "bow": 1e-5}
 
 
 def mac_lr_for_epoch(l_rate: float, epoch: int) -> float:
@@ -186,15 +197,15 @@ _REFUSED = (
     ("coordinator_address", None, "A8 (multi-GPU)"),
     ("num_processes", None, "A8 (multi-GPU)"),
     ("process_id", None, "A8 (multi-GPU)"),
-    ("q_encoder", "lstm", "A6 (the BoW question encoder)"),
 )
 
 
 def refuse_unported(args, model_name):
-    """SystemExit for a model or a flag value the port does not run yet."""
+    """SystemExit for a model the port does not know or a flag value it does
+    not run yet."""
     if model_name not in MODEL_REGISTRY:
-        raise SystemExit(f"--model {model_name}: not ported yet (ROADMAP A6); the port "
-                         f"trains {sorted(MODEL_REGISTRY)}")
+        raise SystemExit(f"--model {model_name}: unknown; the port trains "
+                         f"{sorted(MODEL_REGISTRY)}")
     for flag, default, item in _REFUSED:
         value = getattr(args, flag, default)
         if value != default:
@@ -519,3 +530,85 @@ def run_training(args, model_name, *, q_only=False, v_only=False, clip_value=Non
     ckpt.wait_for_pending_saves()
     h.metrics.close()
     return params, state
+
+
+def _test_loader(args, h, q_only):
+    """The test split's loader, in order and unbucketed, as the JAX harness
+    reads it: the feature cache's (extracted where missing or stale), the
+    packed ``test.vnr`` (packed at first use), or the Python loader."""
+    from videonavqa_tpu_torch.data.vnr import VNRBatchLoader, ensure_built, pack_dataset
+
+    vnr_kw = dict(shuffle=False, mode="test", deterministic=not args.stochastic_eval,
+                  seed=args.seed)
+    if getattr(args, "feature_cache", False) and h.needs_stem and not q_only:
+        files = _extract_features_once(args, h, ("test",))
+        h.needs_stem, h.stem_fn = False, None
+        return VNRBatchLoader(files["test"], args.batch_size, **vnr_kw)
+    if getattr(args, "use_vnr", False) and not q_only:
+        ensure_built()
+        path = os.path.join(args.data_dir, "test.vnr")
+        if not os.path.exists(path):
+            print(f"=> Packing test split into {path}")
+            pack_dataset(args.data_dir, path, h.split["test"])
+        return VNRBatchLoader(path, args.batch_size, **vnr_kw)
+    test_ds = h.dataset("test", q_metadata=True, deterministic=True)
+    return BatchLoader(test_ds, args.batch_size, shuffle=False, mode="test",
+                       num_workers=args.num_workers, seed=args.seed)
+
+
+def run_test(args, model_name, *, q_only=False, v_only=False):
+    """Test-split inference from a required checkpoint -> the summary; prints
+    the per-class accuracies and the "Testing" line, and writes the targets,
+    predictions and question types of the real rows as ``t_``, ``p_`` and
+    ``q_<checkpoint name>.npy`` beside the checkpoint. Each batch's generator
+    is seeded from ``--seed`` + 2 and the batch's index."""
+    if getattr(args, "feature_cache", False) and getattr(args, "int8_stem", False):
+        raise SystemExit("--feature_cache and --int8_stem are mutually exclusive (the cache is "
+                         "extracted with the bf16 stem)")
+    h = Harness(args, model_name, q_only=q_only, v_only=v_only)
+    print("%d test examples" % len(h.split["test"]))
+    loader = _test_loader(args, h, q_only)
+    params, state = h.init_model()
+    if not args.checkpoint_path or not os.path.exists(args.checkpoint_path):
+        raise SystemExit("=> Checkpoint required for testing (--checkpoint_path)")
+    meta = ckpt.load_checkpoint(args.checkpoint_path, params=params, state=state)
+    if "val_acc" in meta:
+        print("=> Restored checkpoint with val acc %s" % meta["val_acc"])
+    eval_step = make_eval_step(h.spec, h.cfg, h.generator, reduction=h.reduction,
+                               stem_fn=h.stem_fn)
+
+    y_pred, y_target, qs = [], [], []
+    total_loss, hit, num_examples = 0.0, 0, 0
+    for i, np_batch in enumerate(loader.epoch(0)):
+        labels_np, q_id = np_batch["label"], np_batch.get("q_id")
+        batch, num_valid = prepare_batch(np_batch)
+        h.generator.manual_seed(batch_seed(args.seed + 2, 0, i, False))
+        metrics = eval_step(params, state, tree_to(batch, h.device))
+        # int32, as the JAX harness's argmax gives them (the dumps' dtype)
+        preds = metrics["preds"][:num_valid].cpu().numpy().astype(np.int32)
+        total_loss += float(metrics["loss"])
+        hit += int(np.sum(preds == labels_np[:num_valid]))
+        # the real rows only; the loss's numerator leaves the padding out too
+        num_examples += num_valid
+        y_pred.append(preds)
+        y_target.append(labels_np[:num_valid])
+        if q_id is not None:
+            qs.append(q_id[:num_valid])
+
+    y_pred = np.concatenate(y_pred) if y_pred else np.array([], np.int64)
+    y_target = np.concatenate(y_target) if y_target else np.array([], np.int64)
+    qs = np.concatenate(qs) if qs else np.array([])
+    summary = {"loss": total_loss / max(num_examples, 1), "hit": hit,
+               "num_examples": num_examples,
+               "f1_w": M.f1_score(y_target, y_pred, average="weighted"),
+               "f1_micro": M.f1_score(y_target, y_pred, average="micro"),
+               "y_pred": y_pred, "y_target": y_target}
+    h.print_val_summary(summary, header="Testing")
+
+    base = os.path.basename(args.checkpoint_path)
+    out_dir = os.path.dirname(args.checkpoint_path) or "."
+    np.save(os.path.join(out_dir, "t_" + base), y_target)
+    np.save(os.path.join(out_dir, "p_" + base), y_pred)
+    np.save(os.path.join(out_dir, "q_" + base), qs)
+    h.metrics.close()
+    return summary

@@ -1,5 +1,5 @@
 """Train and validate a question-only model (the port of the JAX package's
-cli/q_only_eval.py): ``--model lstm``; ``bow`` is not ported yet (ROADMAP A6).
+cli/q_only_eval.py): ``--model lstm`` or ``bow``.
 
 It validates every ``--stats_after_every`` epochs and keeps the checkpoint of
 the best validation accuracy (micro F1), the first validation always.

@@ -12,9 +12,13 @@ int8 activation scales on the first micro-batch (at warm-up, on a stored
 example, over a feature cache). ``--feature_cache true`` serves precomputed
 frozen-stem features (``cli/extract_features.py``) by example id, refusing a
 cache whose stem fingerprint is stale; without it a stem model is served from
-stored videos through the stem. On the card the kernels run (film_attn_pt:
-the re-encode, the attention tail and the fused int8 1x1 conv; the stem's
-block 1), built at warm-up; a kernel that fails to build fails the start-up.
+stored videos through the stem, and a model that takes raw frames
+(v_only_cnn2d_lstm, v_only_cnn3d, concat2d, concat3d) from stored videos
+itself: the C3D models' trimmed buckets through the zero-run splice, from a
+zero-run computed with each weights version. On the card the kernels run
+(the FiLM models: the re-encode, the fused int8 1x1 conv and film_attn_pt's
+attention tail; the LSTM models' masked LSTM; the stem's block 1), built at
+warm-up; a kernel that fails to build fails the start-up.
 
     python -m videonavqa_tpu_torch.cli.serve --model film_attn_pt \\
         --data_dir /path/to/data --checkpoint_path e0_film.npz \\
@@ -24,7 +28,7 @@ block 1), built at warm-up; a kernel that fails to build fails the start-up.
 The paths and bodies are ``serve/http.py``'s. SIGTERM or SIGINT stops
 accepting connections, answers every accepted request and exits. The int8
 stem (ROADMAP A7) and mesh serving (A8) are not ported: their flags exit
-naming the item, as do the models not ported yet (A6).
+naming the item.
 """
 
 from __future__ import annotations
@@ -44,8 +48,7 @@ from videonavqa_tpu_torch.serve.http import make_handler
 
 def build_q_and_v_parser():
     """The training harness's flags, with --model widened to the video-only
-    zoo members the daemon also serves (an unported one is refused when the
-    engine is built)."""
+    zoo members the daemon also serves, as the JAX daemon's."""
     parser = _build_base_parser()
     for action in parser._actions:
         if action.dest == "model":

@@ -1,6 +1,10 @@
 """Train and validate a video-only model (the port of the JAX package's
-cli/v_only_eval.py): ``--model cnn2d_lstm``. ``cnn3d`` is not ported yet
-(ROADMAP A6) and is refused."""
+cli/v_only_eval.py): ``--model cnn3d`` or ``cnn2d_lstm``.
+
+``--bucket_frames`` is the port's own flag here (the JAX parser's v_only
+harness has none, though its ``run_training`` reads it): videos of like
+length go together and the frame axis is trimmed to bucket sizes, which the
+C3D answers exactly through its zero-run splice."""
 
 import argparse
 
@@ -24,6 +28,11 @@ def build_parser():
                         default=False)
     parser.add_argument("--stats_after_every", type=int, default=400)
     parser.add_argument("--val_only", type=lambda s: s.lower() == "true", default=False)
+    parser.add_argument("--bucket_frames",
+                        type=lambda s: "auto" if s.lower() == "auto" else s.lower() == "true",
+                        default=False,
+                        help="group videos of like length per batch and trim the frame axis "
+                             "to bucket sizes ('auto': the cost-optimal edges)")
     return parser
 
 

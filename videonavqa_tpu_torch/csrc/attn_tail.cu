@@ -3,8 +3,9 @@
 // Replaces videonavqa_tpu/kernels/attn_tail_pallas.py (_attn_tail_kernel,
 // called by attn_tail_pallas). Per step:
 //   v = h . w_hid + b_hid;  logits = v + (scores + mask);
-//   m = max(max_t logits, v);
-//   denom = sum_t exp(logits - m) + n_phantom * exp(v - m);
+//   m = max(max_t logits, v), or max_t logits where n_phantom is 0;
+//   denom = sum_t exp(logits - m) + n_phantom * exp(v - m) (no such term
+//   where n_phantom is 0);
 //   ctxt = sum_t (exp(logits - m) / denom) * feats[t];
 //   (h, c) = LSTMCell(ctxt, (h, c)) with bias b_ih + b_hh.
 // The -2^31 mask arithmetic stays in f32, with scores + mask formed first.
@@ -15,8 +16,10 @@
 //   - the softmax does not depend on the step. Every frame's logit is
 //     v + (scores + mask)[t] and the phantom frames' is v, so v cancels:
 //     coef_t = exp(s_t - M) / (sum_t exp(s_t - M) + n_phantom exp(-M)) with
-//     s = scores + mask and M = max(max_t s_t, 0), the same at every step
-//     (the plain version's v = 0). So the context, and with it the input
+//     s = scores + mask and M = max(max_t s_t, 0) (max_t s_t without
+//     phantom frames: the Pallas kernel's max with v then lets every exp
+//     underflow to 0 / 0 where all s_t are far under 0), the same at every
+//     step (the plain version's v = 0). So the context, and with it the input
 //     gates ctxt W_ih^T + b_ih + b_hh, are formed once per launch, reading
 //     the row's features once from device memory; the -2^31 mask arithmetic
 //     stays in f32 with scores + mask formed first. In real arithmetic this
@@ -149,14 +152,14 @@ attn_tail_kernel(const float* __restrict__ feats,   // [B, T, AP]
   if (warp == 0) {   // the weights, the plain version's at v = 0
     float mx = -INFINITY;
     for (int f = lane; f < T; f += 32) mx = fmaxf(mx, sm_s[f]);
-    const float m = fmaxf(warp_max(mx), 0.f);
+    const float m = n_phantom > 0.f ? fmaxf(warp_max(mx), 0.f) : warp_max(mx);
     float se = 0.f;
     for (int f = lane; f < T; f += 32) {
       const float e = expf(sm_s[f] - m);
       co_s[f] = e;
       se += e;
     }
-    const float denom = warp_sum(se) + n_phantom * expf(0.f - m);
+    const float denom = warp_sum(se) + (n_phantom > 0.f ? n_phantom * expf(0.f - m) : 0.f);
     for (int f = lane; f < T; f += 32) co_s[f] = co_s[f] / denom;
   }
   __syncthreads();

@@ -36,9 +36,16 @@ def attn_tail_plain(params, feats, scores, mask, num_steps, n_phantom):
     for _ in range(num_steps):
         v = linear(params["fc_hidden_attn"], h)                    # [B, 1]
         logits = v + sm
-        m = torch.maximum(logits.amax(dim=1, keepdim=True), v)
+        # the max over the frames and the phantom frames, each at v, where there
+        # are some (with none, a max with v lets every exp underflow to 0 / 0
+        # where all scores are far under v)
+        m = logits.amax(dim=1, keepdim=True)
+        if n_phantom > 0:
+            m = torch.maximum(m, v)
         e = torch.exp(logits - m)
-        denom = e.sum(dim=1, keepdim=True) + n_phantom * torch.exp(v - m)
+        denom = e.sum(dim=1, keepdim=True)
+        if n_phantom > 0:
+            denom = denom + n_phantom * torch.exp(v - m)
         ctxt = torch.einsum("bt,bta->ba", e / denom, feats)
         h, c = lstm_cell(params["lstm_attn"], ctxt, h, c)
         hs.append(h)

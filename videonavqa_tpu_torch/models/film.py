@@ -1,9 +1,13 @@
-"""film_attn_pt over the frozen stem (the port of models/film.py).
+"""The FiLM models over the frozen stem, film_gp_pt and film_attn_pt (the port
+of models/film.py).
 
 Per frame: conv3x3(512->C) -> ReLU -> BN, then N residual FiLM blocks
     res = ReLU(conv1x1(x)); y = conv3x3(res); y = ReLU(alpha*y + beta) + res
-with (alpha, beta) generated from the question, which is re-encoded once per
-frame with a carried LSTM state (the film_hidden drift). The tail embeds each
+with (alpha, beta) generated from the question. The question encoder is an
+LSTM re-encoded once per frame with a carried state (the film_hidden drift),
+or (``q_encoder='bow'``) a Linear per token summed over all 56 positions,
+bias included at each, the same for every frame. film_gp_pt's tail is a 1x1
+conv, a ReLU and a max over the valid frames; film_attn_pt's embeds each
 frame, scores it, and runs a 35-step attention LSTM over the frames.
 
 The trunk's convs run once over the folded [B*T] frame batch. The trunk has
@@ -165,32 +169,90 @@ def film_trunk(params, state, feats, film_values, frame_mask, cfg, *, train=Fals
 
 
 def init_film_generator(gen, cfg, total_out):
-    """Embedding + LSTM encoder + decoder Linear."""
-    if cfg.q_encoder != "lstm":
-        raise NotImplementedError("the port has only the LSTM FiLM encoder")
-    return {
-        "embed": {"weight": init.normal(gen, (cfg.vocab_size, cfg.embed_size))},
-        "encoder": init.reference_lstm(gen, cfg.embed_size, cfg.hidden_size),
-        "decoder": init.reference_linear(gen, total_out, cfg.hidden_size),
-    }
+    """Embedding + encoder (LSTM, or the BoW Linear) + decoder Linear."""
+    params = {"embed": {"weight": init.normal(gen, (cfg.vocab_size, cfg.embed_size))}}
+    if cfg.q_encoder == "lstm":
+        params["encoder"] = init.reference_lstm(gen, cfg.embed_size, cfg.hidden_size)
+    else:
+        params["encoder"] = init.reference_linear(gen, cfg.hidden_size, cfg.embed_size)
+    params["decoder"] = init.reference_linear(gen, total_out, cfg.hidden_size)
+    return params
 
 
-def film_values_over_frames(params, q, q_lens, num_frames, cfg, *, use_kernel=False):
+def film_values_over_frames(params, q, q_lens, num_frames, cfg, *, padding_idx=None,
+                            use_kernel=False):
     """FiLM (gamma, beta) per frame: [B, T, total_out] f32.
 
-    One question re-encode per frame with carried (h, c). The token
-    projection is the same for every frame: one matmul, then the whole
+    ``padding_idx`` is the embedding's: film_gp_pt's is 0 (padded positions
+    embed to zero; under BoW they still add the encoder's bias), film_attn_pt
+    has none (padded positions look up the live row 0).
+
+    LSTM encoder: one question re-encode per frame with carried (h, c). The
+    token projection is the same for every frame: one matmul, then the whole
     num_frames x q_len double recurrence, as one kernel with ``use_kernel``
-    (kernels/film_reencode.py)."""
-    if cfg.q_encoder != "lstm":
-        raise NotImplementedError("the port has only the LSTM FiLM encoder")
+    (kernels/film_reencode.py). BoW encoder: the Linear of each token summed
+    over all positions (the reference's mean division is discarded), the
+    same for every frame; it runs no kernel."""
     enc_p = params["encoder"]
-    emb = embedding(params["embed"], q)
+    emb = embedding(params["embed"], q, padding_idx=padding_idx)
+    if cfg.q_encoder != "lstm":
+        enc = linear(enc_p, emb).sum(dim=1)   # [B,H]
+        enc = enc[:, None, :].expand(enc.shape[0], num_frames, enc.shape[1])
+        return torch.relu(linear(params["decoder"], enc))
     xw = linear({"weight": enc_p["w_ih"], "bias": enc_p["b_ih"]}, emb)  # [B,Tq,4H]
     run = film_reencode if use_kernel else film_reencode_plain
     enc = run(xw.transpose(0, 1).contiguous(), enc_p["w_hh"].float().contiguous(),
               enc_p["b_hh"].float().contiguous(), q_lens.to(torch.int32), num_frames)
     return torch.relu(linear(params["decoder"], enc.transpose(0, 1)))
+
+
+def _check_reencode(cfg, q, use_kernels):
+    """Off the CPU, refuse a re-encode shape the kernel does not take before
+    any kernel runs (the BoW encoder runs none)."""
+    if use_kernels and cfg.q_encoder == "lstm" and q.device.type != "cpu":
+        check_reencode_shape(q.shape[0], cfg.hidden_size)
+
+
+def init_film_gp(gen, cfg, device):
+    """(params, state) of film_gp_pt from a CPU ``torch.Generator``, moved to
+    ``device``."""
+    total_out = 2 * cfg.num_res_block_channels * cfg.num_res_blocks
+    params = init_film_generator(gen, cfg, total_out)
+    params["trunk"], trunk_state = init_film_trunk(gen, cfg)
+    params["c1x1_tail"] = init.reference_conv2d(gen, 1, 1, cfg.num_res_block_channels,
+                                                cfg.num_tail_channels)
+    params["out_linear"] = init.reference_linear(
+        gen, cfg.num_classes, C.STEM_OUT_POSITIONS * cfg.num_tail_channels)
+    return tree_to(params, device), tree_to({"trunk": trunk_state}, device)
+
+
+def apply_film_gp(params, state, batch, cfg, *, train=False, generator=None):
+    """batch (see models/base.py) -> (logits [B, num_classes], new_state).
+    The eval forward runs the re-encode (LSTM encoder) and the fused int8
+    1x1 conv (calibrated int8 trunk) through their kernels where
+    ``cfg.use_pallas_kernels`` asks for them; the train forward runs none."""
+    feats, v_lens = batch["v_features"], batch["v_len"]
+    q, q_lens = batch["question"], batch["q_len"]
+    B, T = feats.shape[:2]
+    use_kernels = cfg.use_pallas_kernels and not train
+    _check_reencode(cfg, q, use_kernels)
+    frame_mask = length_mask(v_lens, T)
+
+    films = film_values_over_frames(params, q, q_lens, T, cfg, padding_idx=0,
+                                    use_kernel=use_kernels)
+    x, trunk_state = film_trunk(params["trunk"], state["trunk"], feats, films,
+                                frame_mask, cfg, train=train)
+    x = torch.relu(conv2d(params["c1x1_tail"], x.reshape(B * T, *x.shape[2:]),
+                          dtype=DTYPES[cfg.compute_dtype]))
+    # invalid frames zero, then the max over frames (post-ReLU values are >=
+    # 0, so the zeros are the reference's zero-padded rows); the max commutes
+    # with the CHW flatten, which linear_chw takes care of
+    x = mask_invalid(x.reshape(B, T, *x.shape[1:]), v_lens)
+    return linear_chw(params["out_linear"], x.amax(dim=1)), {"trunk": trunk_state}
+
+
+register_model("film_gp_pt", init_film_gp, apply_film_gp,
+               needs_video=True, needs_question=True, uses_stem=True)
 
 
 def init_film_attn(gen, cfg, device):
@@ -218,10 +280,10 @@ def apply_film_attn(params, state, batch, cfg, *, train=False, generator=None):
     q, q_lens = batch["question"], batch["q_len"]
     B, T = feats.shape[:2]
     use_kernels = cfg.use_pallas_kernels and not train
-    if use_kernels and q.device.type != "cpu":
-        check_reencode_shape(B, cfg.hidden_size)
+    _check_reencode(cfg, q, use_kernels)
     frame_mask = length_mask(v_lens, T)
 
+    # film_attn_pt's embedding has no padding_idx
     films = film_values_over_frames(params, q, q_lens, T, cfg, use_kernel=use_kernels)
     x, trunk_state = film_trunk(params["trunk"], state["trunk"], feats, films,
                                 frame_mask, cfg, train=train)

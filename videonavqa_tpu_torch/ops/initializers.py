@@ -7,7 +7,7 @@ re-initializes (MAC's LSTMs, lstm_proj and third conv). These let the port build
 weights with no JAX. They do not give the JAX package's numbers (another
 generator): parity tests bridge the JAX weights instead.
 
-Layouts: Linear ``[out, in]``; Conv2D ``OIHW``; LSTM ``w_ih [4H, in]``,
+Layouts: Linear ``[out, in]``; Conv2D ``OIHW``; Conv3D ``OIDHW``; LSTM ``w_ih [4H, in]``,
 ``w_hh [4H, H]`` with gate order (i, f, g, o). Tensors are made on the CPU
 (so a seed gives the same weights on every device); callers move them.
 """
@@ -23,8 +23,8 @@ def _fans(shape, layout: str) -> tuple[int, int]:
     """(fan_in, fan_out) as torch.nn.init._calculate_fan_in_and_fan_out."""
     if layout == "oi":
         return shape[1], shape[0]
-    if layout == "oihw":
-        rf = shape[2] * shape[3]
+    if layout in ("oihw", "oidhw"):
+        rf = math.prod(shape[2:])
         return shape[1] * rf, shape[0] * rf
     raise ValueError(f"unknown layout {layout!r}")
 
@@ -61,6 +61,14 @@ def torch_default_conv2d(gen, kh: int, kw: int, cin: int, cout: int):
             "bias": uniform(gen, (cout,), -bound, bound)}
 
 
+def torch_default_conv3d(gen, kd: int, kh: int, kw: int, cin: int, cout: int):
+    """torch's default nn.Conv3d init, which the reference's C3D convs keep
+    (its weights_init matches only nn.Conv2d)."""
+    bound = 1.0 / math.sqrt(cin * kd * kh * kw)
+    return {"weight": kaiming_uniform(gen, (cout, cin, kd, kh, kw), "oidhw", a=math.sqrt(5.0)),
+            "bias": uniform(gen, (cout,), -bound, bound)}
+
+
 def torch_default_lstm(gen, input_size: int, hidden_size: int):
     """torch's default nn.LSTM init: every weight and bias uniform(+-1/sqrt(H))."""
     bound = 1.0 / math.sqrt(hidden_size)
@@ -92,6 +100,11 @@ def reference_linear(gen, out_features: int, in_features: int):
 
 def reference_conv2d(gen, kh: int, kw: int, cin: int, cout: int):
     return {"weight": xavier_uniform(gen, (cout, cin, kh, kw), "oihw"),
+            "bias": torch.zeros(cout)}
+
+
+def reference_conv3d(gen, kd: int, kh: int, kw: int, cin: int, cout: int):
+    return {"weight": xavier_uniform(gen, (cout, cin, kd, kh, kw), "oidhw"),
             "bias": torch.zeros(cout)}
 
 

@@ -51,24 +51,36 @@ def frame_batch_norm(params, state, x, frame_mask, *, train: bool):
     return y, new_state
 
 
+def batch_stats(state, x):
+    """(mean, biased var, new running state) of x f32 over all axes but the
+    last, as train-mode batch_norm takes them: the unbiased variance enters
+    the running-stat EMA, which carries no gradient."""
+    axes = tuple(range(x.ndim - 1))
+    mean = x.mean(dim=axes)
+    var = torch.square(x - mean).mean(dim=axes)
+    n = x.numel() // x.shape[-1]
+    unbiased = var.detach() * (n / max(n - 1, 1))
+    new_state = {"mean": (1 - MOMENTUM) * state["mean"] + MOMENTUM * mean.detach(),
+                 "var": (1 - MOMENTUM) * state["var"] + MOMENTUM * unbiased}
+    return mean, var, new_state
+
+
+def normalize(params, x, mean, var):
+    """The BatchNorm affine of x under the given statistics."""
+    y = (x - mean) * torch.reciprocal(torch.sqrt(var + EPS))
+    return y * params["weight"] + params["bias"]
+
+
 def batch_norm(params, state, x, *, train: bool):
     """BatchNorm over all axes but the last (channels last) -> (f32 y, state),
     as torch.nn.BatchNorm{1,2,3}d: the biased variance normalizes, the
     unbiased one enters the running-stat EMA."""
     x = x.float()
     if train:
-        axes = tuple(range(x.ndim - 1))
-        mean = x.mean(dim=axes)
-        var = torch.square(x - mean).mean(dim=axes)
-        n = x.numel() // x.shape[-1]
-        unbiased = var.detach() * (n / max(n - 1, 1))
-        new_state = {"mean": (1 - MOMENTUM) * state["mean"] + MOMENTUM * mean.detach(),
-                     "var": (1 - MOMENTUM) * state["var"] + MOMENTUM * unbiased}
+        mean, var, new_state = batch_stats(state, x)
     else:
-        mean, var = state["mean"], state["var"]
-        new_state = state
-    y = (x - mean) * torch.reciprocal(torch.sqrt(var + EPS))
-    return y * params["weight"] + params["bias"], new_state
+        mean, var, new_state = state["mean"], state["var"], state
+    return normalize(params, x, mean, var), new_state
 
 
 def init_layer_norm(c: int):

@@ -27,7 +27,11 @@ flags, and the engine also carries:
   frame picks draw from one ``np.random.RandomState(seed)`` under a lock;
 - the weights as one ``(params, state)`` tuple with a version: a hot
   ``reload`` swaps the tuple and re-arms int8 calibration, and a calibration
-  commits only if the version it ran on is still current;
+  commits only if the version it ran on is still current; a C3D model's
+  precomputed zero-run (``state['c3d_zero']``, the columns the cached splice
+  reads at each frame bucket it takes) is computed from the new weights
+  before they are swapped in, in the same tuple, so no batch runs new
+  weights with an old zero-run;
 - ``dispatch_batch``, which stages the batch's host arrays into pinned
   memory, copies them on a side stream, enqueues the forward and the softmax
   and a copy of the probabilities back, and returns before the card has run
@@ -51,6 +55,7 @@ import torch
 
 from videonavqa_tpu_torch.datagen.encode import tokenize
 from videonavqa_tpu_torch.models import get_model
+from videonavqa_tpu_torch.models import v_only_cnn3d
 from videonavqa_tpu_torch.models.base import DTYPES
 from videonavqa_tpu_torch.ops.video import normalize_video
 from videonavqa_tpu_torch.stem import (
@@ -59,6 +64,9 @@ from videonavqa_tpu_torch.train.step import forward
 from videonavqa_tpu_torch.utils import checkpoint as ckpt
 from videonavqa_tpu_torch.utils import constants as C
 from videonavqa_tpu_torch.utils.device import resolve_device, tree_map, tree_to
+
+# the models on the C3D trunk, whose frame-bucketed batches read a zero-run
+C3D_MODELS = ("v_only_cnn3d", "concat3d")
 
 # numpy carries bf16 and fp8 e4m3 planes as their bits
 _BITS = {torch.bfloat16: torch.int16, torch.float8_e4m3fn: torch.uint8}
@@ -233,7 +241,9 @@ class InferenceEngine:
         """Read a checkpoint (or take ``init``, the model's init, where there
         is no path) and swap it in as one ``(params, state)`` tuple, so a
         batch runs wholly on the old weights or wholly on the new; bumps the
-        version and re-arms int8 calibration. -> the checkpoint's epoch."""
+        version and re-arms int8 calibration. A C3D model's zero-run is
+        computed from these weights first and goes into the tuple's state.
+        -> the checkpoint's epoch."""
         meta = {}
         if path:
             if not os.path.exists(path):
@@ -247,11 +257,25 @@ class InferenceEngine:
             params, state = self.spec.init(torch.Generator().manual_seed(self.seed), self.cfg,
                                            torch.device("cpu"))
         weights = (tree_to(params, self.device), tree_to(state, self.device))
+        zero_run = self._zero_run(*weights)
+        if zero_run is not None:
+            weights = (weights[0], {**weights[1], "c3d_zero": zero_run})
         with self._weights_lock:
             self._weights = weights
             self._weights_version += 1
             self._needs_int8_calibration = bool(self.cfg.use_int8_trunk)
         return int(meta.get("epoch", 0))
+
+    def _zero_run(self, params, state):
+        """A C3D model's precomputed zero-run for each frame bucket the cached
+        splice takes (``v_only_cnn3d.precompute_c3d_zero_slices``), or None."""
+        if self.cfg.model not in C3D_MODELS:
+            return None
+        widths = [t for t in self.frame_buckets
+                  if 0 < t <= min(v_only_cnn3d.SPLICE_MAX_T_CACHED, self.cfg.max_num_frames - 1)]
+        if not widths:
+            return None
+        return v_only_cnn3d.precompute_c3d_zero_slices(params, state, self.cfg, widths)
 
     @property
     def params(self):

@@ -4,10 +4,12 @@ Adam's state.
 A checkpoint is one .npz of '/'-joined pytree paths (``params/...``,
 ``state/...``, ``opt/...``) plus a JSON ``__meta__`` entry, read and written
 with numpy alone, so the JAX package loads a checkpoint the port wrote and
-the port loads one the JAX package wrote. Layouts: conv kernels are HWIO in
-the file and OIHW in the port (every 4-D leaf, the calibrated ``int8_wq``
-kernels included); Linear and LSTM weights are ``[out, in]`` on both sides,
-as are ``int8_scales``. A list (MAC's twelve ``position_aware`` linears) is
+the port loads one the JAX package wrote. Layouts: 2-D conv kernels are HWIO
+in the file and OIHW in the port (every 4-D leaf, the calibrated ``int8_wq``
+kernels included), 3-D ones DHWIO and OIDHW (every 5-D leaf); Linear and
+LSTM weights are ``[out, in]`` on both sides, as are ``int8_scales``. The
+serving engine's ``c3d_zero`` state (the C3D's precomputed zero-run, a
+function of the weights) is never written, nor read from a file. A list (MAC's twelve ``position_aware`` linears) is
 stored under the keys ``0``, ``1``, ... and comes back as a list.
 
 The optimizer is optax's ``inject_hyperparams(adam)`` in the JAX package and
@@ -56,18 +58,31 @@ def read_npz(path):
     return flat, meta
 
 
+# state entries that are derived from the weights, never stored
+UNSTORED_STATE = ("c3d_zero",)
+
+# the file's conv layouts (HWIO, DHWIO) -> the port's (OIHW, OIDHW), by rank
+_TO_PORT = {4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
+_TO_FILE = {4: (2, 3, 1, 0), 5: (2, 3, 4, 1, 0)}
+
+
 def _to_torch(a: np.ndarray) -> torch.Tensor:
-    if a.ndim == 4:  # HWIO -> OIHW
-        a = a.transpose(3, 2, 0, 1)
+    if a.ndim in _TO_PORT:
+        a = a.transpose(_TO_PORT[a.ndim])
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(np.array(a).view(np.uint16)).view(torch.bfloat16)
     return torch.from_numpy(np.array(a))
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    """A host copy of ``t`` in the file's layout (OIHW -> HWIO)."""
+    """A host copy of ``t`` in the file's layout (OIHW -> HWIO, OIDHW -> DHWIO)."""
     a = t.detach().to("cpu", copy=True).numpy()
-    return np.ascontiguousarray(a.transpose(2, 3, 1, 0)) if a.ndim == 4 else a
+    return np.ascontiguousarray(a.transpose(_TO_FILE[a.ndim])) if a.ndim in _TO_FILE else a
+
+
+def _stored_items(state):
+    """tree_items of a state without its UNSTORED_STATE entries."""
+    return tree_items({k: v for k, v in state.items() if k not in UNSTORED_STATE})
 
 
 def _nest(flat, prefix):
@@ -191,7 +206,7 @@ def _gather_flat(params, state, optimizer, meta):
     """A host snapshot of every leaf in the file's layout."""
     flat = {"params/" + k: _to_numpy(v) for k, v in tree_items(params)}
     if state is not None:
-        flat.update({"state/" + k: _to_numpy(v) for k, v in tree_items(state)})
+        flat.update({"state/" + k: _to_numpy(v) for k, v in _stored_items(state)})
     if optimizer is not None:
         flat.update(adam_to_flat(optimizer, params))
     flat["__meta__"] = np.frombuffer(json.dumps(meta or {}).encode("utf-8"), dtype=np.uint8)
@@ -245,7 +260,8 @@ def load_checkpoint(path, *, params, state=None, optimizer=None):
             if tree is None or (prefix == "state/" and
                                 not any(k.startswith(prefix) for k in flat)):
                 continue
-            for k, t in tree_items(tree):
+            items = tree_items(tree) if prefix == "params/" else _stored_items(tree)
+            for k, t in items:
                 t.copy_(_leaf(flat, prefix + k, t))
     if optimizer is not None and any(k.startswith("opt/") for k in flat):
         adam_from_flat(optimizer, params, flat)
