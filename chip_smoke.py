@@ -32,7 +32,9 @@ kernel's plain version):
              seeded bf16 features, and from seeded uint8 video
              [35, 160, 208, 3] through the engine's video mode (the frozen
              stem from seed 1234, VGG block 1 through its kernel; the model
-             from seed 0). Each calibrates on its first micro-batch, then
+             from seed 0), and from the same video through the int8 stem
+             (stem/quant.py, calibrated on one other video; vgg_block1 0
+             times). Each calibrates on its first micro-batch, then
              serves other items: batch 32 (from features at frame buckets 20
              and 35, from video at 35) and batch 1 at 35 frames, every one
              at or under the fused-1x1 row gate, with every launch counter set to 0
@@ -131,7 +133,10 @@ kernel's plain version):
              (lstm twice a val batch); v_only_eval cnn2d_lstm; q_only_eval
              lstm at batch 32 for 2 epochs; q_and_v_eval film_gp_pt at its
              preset from raw video (vgg_block1 a step, the re-encode a val
-             batch), v_only_eval cnn3d with frame buckets and q_only_eval
+             batch), film_attn_pt's preset with --int8_stem true (improved:
+             calibrated on the first train batch; vgg_block1 never) and
+             q_and_v_test of its e0_ checkpoint so (absmax), v_only_eval
+             cnn3d with frame buckets and q_only_eval
              bow, each then tested from its checkpoint by q_and_v_test,
              v_only_test and q_only_test (the test split in order), and
              results_analysis run over the dumps each wrote. Every loss
@@ -159,8 +164,24 @@ kernel's plain version):
              Each daemon is then shut down under a burst of 64 requests:
              every accepted request answered, the others refused at the
              closed socket. Then cli/predict.py on one stored video through
-             the stem. Prints requests/s, p50 / p95 / p99 latency, the
-             average batch, avg_forward_ms and one micro-batch's idle share.
+             the stem, and again with --int8_stem true (no calibration batch:
+             the bf16 stem's answer, as in JAX); the daemon from the stored
+             videos through the int8 stem (--int8_stem true, calibrated at
+             start-up on the first video; 16 clients, vgg_block1 never).
+             Prints requests/s, p50 / p95 / p99 latency, the average batch,
+             avg_forward_ms and one micro-batch's idle share;
+9. stem    — the rest of the stem: the int8 stem at full width over seeded
+             uint8 video [32, 35, 160, 208, 3], calibrated both ways (no
+             kernel launched): the VGG stage bit-equal between the card and
+             the CPU on one qstem, the features within the JAX package's
+             test bounds of the f32 stem (relative L2 0.06 absmax, 0.03
+             improved), its time, peak memory and top device ops at 1,120
+             frames against the bf16 stem; cli/train_obj_detector.py --data
+             at full width (512 filters, tail 1,024, batch 32, dropout 0.5,
+             2 epochs of 3 steps: vgg_block1 once a step, the loss finite
+             and falling); MAC with both write variants at a small config,
+             served with the kernels (lstm 3 a forward) against the CPU and
+             3 train steps card vs CPU (TRAIN_* bounds).
 
 Run one kernel's check alone (it builds only that source), e.g.
 ``python3 -c "import torch, chip_smoke as cs; cs.check_vgg_block1(torch.device('cuda'))"``.
@@ -196,6 +217,7 @@ from videonavqa_tpu_torch.cli import predict as predict_mod
 from videonavqa_tpu_torch.cli import q_and_v_eval, q_and_v_test, q_only_eval, q_only_test
 from videonavqa_tpu_torch.cli import results_analysis, v_only_eval, v_only_test
 from videonavqa_tpu_torch.cli import serve as serve_mod
+from videonavqa_tpu_torch.cli import train_obj_detector as detector_mod
 from videonavqa_tpu_torch.cli.common import PRESET_L_RATE, TRAIN_STEP_OPTIONS
 from videonavqa_tpu_torch.data.pipeline import DataPaths, load_json
 from videonavqa_tpu_torch.data.synthetic import generate_synthetic_dataset
@@ -208,6 +230,7 @@ from videonavqa_tpu_torch.kernels import lstm as lstm_mod
 from videonavqa_tpu_torch.kernels import vgg_block1 as block1_mod
 from videonavqa_tpu_torch.models import ModelConfig, get_model
 from videonavqa_tpu_torch.models import concat2d as concat_mod
+from videonavqa_tpu_torch.models import mac as mac_model
 from videonavqa_tpu_torch.models import q_only_lstm
 from videonavqa_tpu_torch.models import v_only_cnn3d as c3d_mod
 from videonavqa_tpu_torch.models.film import INT8_FUSED_MAX_ROWS, film_values_over_frames
@@ -220,6 +243,7 @@ from videonavqa_tpu_torch.ops.video import normalize_video
 from videonavqa_tpu_torch.serve.engine import STEM_SEED, InferenceEngine
 from videonavqa_tpu_torch.serve.loadgen import request as http
 from videonavqa_tpu_torch.stem import init_obj_detector, init_vgg_partial, stem_features
+from videonavqa_tpu_torch.stem import quant
 from videonavqa_tpu_torch.train.step import (
     make_eval_step, make_optimizer, make_train_step, tree_items, tree_leaves)
 from videonavqa_tpu_torch.utils.checkpoint import save_checkpoint
@@ -1132,18 +1156,19 @@ def serve_film_attn_features(dev, feats, tally):
     return launches, ms, worst
 
 
-def serve_film_attn_video(dev, video, tally):
-    """The eval.sh preset from raw uint8 video through the engine's video mode:
-    calibrate on one set of videos, then serve batch 32 and batch 1 at 35
-    frames from others, counted; the kernel path against the plain path;
-    ms/video and the stem's share."""
+def serve_film_attn_video(dev, video, tally, stem=None, label="from video"):
+    """The eval.sh preset from raw uint8 video through the engine's video mode
+    (``stem``: a stem callable, e.g. the int8 stem; by default the engine's
+    seeded stem, block 1 through vgg_block1): calibrate on one set of videos,
+    then serve batch 32 and batch 1 at 35 frames from others, counted; the
+    kernel path against the plain path; ms/video and the stem's share."""
     cfg = FILM_ATTN_CFG
     t0 = time.perf_counter()
-    eng_big = InferenceEngine(cfg, seed=0, max_batch=32, device=dev, from_video=True)
+    eng_big = InferenceEngine(cfg, seed=0, max_batch=32, device=dev, from_video=True, stem=stem)
     eng1 = InferenceEngine(cfg, seed=0, max_batch=1, device=dev, from_video=True,
                            stem=eng_big.stem)
-    log(f"  {cfg.model} weights: stem from seed 1234, 2 engines from seed 0 in"
-        f" {time.perf_counter() - t0:.1f} s")
+    log(f"  {cfg.model} {label} weights: stem {'given' if stem else 'from seed 1234'}, 2 engines"
+        f" from seed 0 in {time.perf_counter() - t0:.1f} s")
     cpu_gen = torch.Generator().manual_seed(5)
     cal = feature_items(video, cpu_gen, 0, 32, 35)
     cal1 = feature_items(video, cpu_gen, 64, 65, 35)
@@ -1166,19 +1191,20 @@ def serve_film_attn_video(dev, video, tally):
     outs = [eng.run_batch(its) for eng, its in runs]
     torch.cuda.synchronize()
     launches = read_counters()
-    log(f"  {cfg.model} from video, launches on its path (batch 32 and batch 1 at 35 frames):"
+    log(f"  {cfg.model} {label}, launches on its path (batch 32 and batch 1 at 35 frames):"
         f" {launches}")
+    # the int8 stem quantizes block 1 with the rest: vgg_block1 launches 0 times there
     expect_launches(cfg.model, launches, dict(
-        FILM_ATTN_KERNELS, vgg_block1=2,
+        FILM_ATTN_KERNELS, vgg_block1=0 if stem else 2,
         int8_matmul_fused=fused_1x1_launches(5, 32 * 35 * 130, 35 * 130)))
     for probs, (_, its) in zip(outs, runs):
         check_probs(probs, len(its))
     worst = max(compare_paths(eng, its) for eng, its in runs)
     ms = {}
-    for label, eng, its, iters in ((f"{cfg.model} video batch 32 T35", eng_big, b35, 3),
-                                   (f"{cfg.model} video batch 1 T35", eng1, one, 10)):
-        ms[label] = time_paths(label, eng, its, iters, tally)
-        stem_share(label, eng, its)
+    for name, eng, its, iters in ((f"{cfg.model} {label} batch 32 T35", eng_big, b35, 3),
+                                  (f"{cfg.model} {label} batch 1 T35", eng1, one, 10)):
+        ms[name] = time_paths(name, eng, its, iters, tally)
+        stem_share(name, eng, its)
     return launches, ms, worst
 
 
@@ -1485,6 +1511,9 @@ def serve(dev):
     ms, worst, tally = {}, 0.0, dict.fromkeys(KERNEL_NAMES, 0.0)
     paths = [lambda: serve_film_attn_features(dev, feats, tally),
              lambda: serve_film_attn_video(dev, video, tally),
+             lambda: serve_film_attn_video(
+                 dev, video, tally, stem=int8_stem_fn(dev, normalize_video(video[64:65])),
+                 label="from video, int8 stem"),
              lambda: serve_time_multi_hop(dev, feats, tally)]
     paths += [lambda m=m, n=n: serve_zoo_model(dev, m, feats, n, tally)
               for m, n in (("lstm", 1), ("v_only_cnn2d_lstm", 1), ("concat2d", 2), ("mac", 3))]
@@ -2155,11 +2184,19 @@ def recorded_epochs():
         harness_mod.Harness.run_epoch = orig
 
 
+def check_entry_launches(label, launches, want):
+    """``want``: {kernel: least count, or 0 for 'never'}."""
+    for name, least in want.items():
+        if (launches[name] != 0) if least == 0 else (launches[name] < least):
+            raise AssertionError(f"{label}: {name} launched {launches[name]} times,"
+                                 f" expected {'none' if least == 0 else f'at least {least}'}")
+
+
 def run_entry(label, main_fn, argv, want, metrics_file):
     """Run one entry point on the card, its launches counted from 0 ->
     (launches, [(train, summary)]). Raises where a kernel of ``want``
-    ({kernel: least count}) launched fewer times, where a loss is not finite,
-    or where the JSONL stream lacks an epoch event."""
+    ({kernel: least count, 0: never}) launched fewer times (or at all), where
+    a loss is not finite, or where the JSONL stream lacks an epoch event."""
     torch.cuda.synchronize()
     reset_counters()
     t0 = time.perf_counter()
@@ -2168,10 +2205,7 @@ def run_entry(label, main_fn, argv, want, metrics_file):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counters()
-    for name, least in want.items():
-        if launches[name] < least:
-            raise AssertionError(f"{label}: {name} launched {launches[name]} times,"
-                                 f" expected at least {least}")
+    check_entry_launches(label, launches, want)
     for train, summary in seen:
         if not math.isfinite(summary["loss"]) or summary["num_examples"] < 1:
             raise AssertionError(f"{label}: epoch summary {summary['loss']} over"
@@ -2191,7 +2225,7 @@ def run_entry(label, main_fn, argv, want, metrics_file):
 def run_test_entry(label, main_fn, argv, want):
     """Run one test-split entry point on the card, its launches counted from
     0, then results_analysis over the dumps it wrote -> launches. Raises where
-    a kernel of ``want`` launched fewer times, where the summary's loss is not
+    a kernel of ``want`` launched fewer times (0: at all), where the summary's loss is not
     finite or counts no example, or where results_analysis prints no
     category."""
     torch.cuda.synchronize()
@@ -2201,10 +2235,7 @@ def run_test_entry(label, main_fn, argv, want):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counters()
-    for name, least in want.items():
-        if launches[name] < least:
-            raise AssertionError(f"{label}: {name} launched {launches[name]} times,"
-                                 f" expected at least {least}")
+    check_entry_launches(label, launches, want)
     if not math.isfinite(summary["loss"]) or summary["num_examples"] < 1:
         raise AssertionError(f"{label}: summary {summary['loss']} over"
                              f" {summary['num_examples']} examples")
@@ -2255,6 +2286,10 @@ def harness(card, tmp=None, data=None):
          q_and_v_eval.main, FILM_PRESET + common + [
              "--checkpoint_path", os.path.join(tmp, "e0_film.npz"), "--val_only", "true"],
          {"vgg_block1": 1, "film_reencode": 1, "attn_tail": 1}),
+        ("q_and_v_eval film_attn_pt, eval.sh preset, --int8_stem true (improved), 1 epoch",
+         q_and_v_eval.main, FILM_PRESET + common + [
+             "--int8_stem", "true", "--checkpoint_path", os.path.join(tmp, "film_int8.npz")],
+         {"vgg_block1": 0, "film_reencode": 1, "attn_tail": 1}),
         ("q_and_v_eval concat2d, Python loader, 1 epoch",
          q_and_v_eval.main, ["--model", "concat2d", "--batch_size", "32",
                              "--use_pallas_kernels", "true"] + common, {"lstm": 2}),
@@ -2277,6 +2312,11 @@ def harness(card, tmp=None, data=None):
         ("q_and_v_test film_gp_pt from its e0_ checkpoint", q_and_v_test.main,
          FILM_GP_PRESET + common + ["--checkpoint_path", os.path.join(tmp, "e0_gp.npz")],
          {"vgg_block1": 1, "film_reencode": 1}),
+        ("q_and_v_test film_attn_pt, --int8_stem true (absmax), from e0_film",
+         q_and_v_test.main, FILM_PRESET + common + [
+             "--int8_stem", "true", "--int8_stem_calibration", "absmax",
+             "--checkpoint_path", os.path.join(tmp, "e0_film.npz")],
+         {"vgg_block1": 0, "film_reencode": 1, "attn_tail": 1}),
         ("v_only_test cnn3d from its e0_ checkpoint", v_only_test.main,
          ["--model", "cnn3d", "--bucket_frames", "true",
           "--checkpoint_path", os.path.join(tmp, "e0_cnn3d.npz")] + common, {}),
@@ -2315,6 +2355,12 @@ DAEMON_PRESET = ["--model", "film_attn_pt", "--num_res_blocks", "5",
                  "--use_pallas_kernels", "true", "--feature_cache", "true",
                  "--bucket_frames", "auto", "--max_batch", "32", "--pipeline_depth", "2",
                  "--batch_wait_ms", "5", "--port", "0"]
+# The same preset from the stored videos through the int8 stem (video mode,
+# --int8_stem true: calibrated at start-up on the first stored video).
+_CACHE_FLAG = DAEMON_PRESET.index("--feature_cache")
+INT8_STEM_DAEMON = DAEMON_PRESET[:_CACHE_FLAG] + DAEMON_PRESET[_CACHE_FLAG + 2:] + [
+    "--int8_stem", "true"]
+INT8_STEM_REQUESTS, INT8_STEM_CLIENTS = 64, 16
 DAEMON_REQUESTS, DAEMON_CLIENTS = 256, 64   # bf16 cache; more until a /reload is answered
 AFTER_RELOAD = 64                           # ... and this many requests after it
 FP8_REQUESTS, FP8_CLIENTS = 64, 16          # fp8 cache
@@ -2451,7 +2497,7 @@ def serve_load(label, args, tmp, jobs, n, clients, vocab, reload_at=None, want=f
     threading.Thread(target=server.serve_forever, daemon=True).start()
     port = server.server_address[1]
     log(f"  {label}: the daemon up in {time.perf_counter() - t0:.1f} s (built, calibrated on"
-        f" a stored example, buckets {engine.frame_buckets})")
+        f" a stored example, buckets {engine.frame_buckets}, int8_stem {engine.stem_is_int8})")
     rec = Recorder(engine, batcher)
     until = None if reload_at is None else os.path.join(tmp, f"reloaded_{port}")
     torch.cuda.synchronize()
@@ -2660,6 +2706,32 @@ def daemon(card, tmp=None, data=None, ckpt=None):
     expect_launches("predict", launches, {"vgg_block1": 1, "film_reencode": 1, "attn_tail": 1})
     check_probs(probs[None], 1)
     total = {k: total[k] + launches[k] for k in total}
+    # with --int8_stem true predict has no calibration batch: the bf16 stem, as in JAX
+    reset_counters()
+    probs8 = predict_mod.main(FILM_PRESET[:6] + ["--data_dir", data, "--checkpoint_path", ckpt,
+                                                 "--video", video, "--question", question_text(0),
+                                                 "--int8_stem", "true"])
+    torch.cuda.synchronize()
+    launches = read_counters()
+    err = float(np.abs(probs8 - probs).max())
+    log(f"  predict --int8_stem true: the bf16 stem's answer, max |dprob| {err:.3e}; launches"
+        f" {launches}")
+    expect_launches("predict --int8_stem true", launches,
+                    {"vgg_block1": 1, "film_reencode": 1, "attn_tail": 1})
+    if err > 1e-6 or probs8.argmax() != probs.argmax():
+        raise AssertionError("predict --int8_stem true does not answer as the bf16 stem")
+    total = {k: total[k] + launches[k] for k in total}
+
+    # the daemon from the stored videos through the int8 stem: vgg_block1 never
+    vjobs = [{"video": ids[int(rng.integers(len(ids)))] + ".npy", "question": question_text(i)}
+             for i in range(4 * INT8_STEM_REQUESTS)]
+    args = serve_mod.build_parser().parse_args(INT8_STEM_DAEMON + ["--data_dir", data,
+                                                                   "--checkpoint_path", ckpt])
+    launches, stats, rate, worst, busy = serve_load("daemon int8 stem from video", args, tmp,
+                                                    vjobs, INT8_STEM_REQUESTS, INT8_STEM_CLIENTS,
+                                                    vocab)
+    total = {k: total[k] + launches[k] for k in total}
+    results["daemon int8 stem from video"] = (rate, stats, worst, busy)
     cnn3d = os.path.join(tmp, "e0_cnn3d.npz")
     if os.path.exists(cnn3d):
         launches, rate, stats, worst, busy = daemon_cnn3d(tmp, data, cnn3d, vocab)
@@ -2671,6 +2743,233 @@ def daemon(card, tmp=None, data=None, ckpt=None):
                     f" {max(0.0, 1 - b / w):.3f}, max |dprob| {e:.3e}"
                     for k, (r, s, e, (b, w)) in results.items()))
     return total
+
+
+# --- phase 9: the rest of the stem ------------------------------------------
+#
+# The int8 stem (stem/quant.py) at full width, calibrated both ways: the
+# VGG stage bit-equal between the card and the CPU on one qstem, the feature
+# error against the port's f32 stem under the JAX package's own test bounds
+# (relative L2), and its time and peak memory at 1,120 frames against the
+# bf16 stem; the detector's trainer at full width; MAC's write variants
+# served and trained, card against CPU.
+
+INT8_FEATURE_RTOL = {"absmax": 0.06, "improved": 0.03}
+INT8_STEM_BATCH = (32, 35)      # 1,120 frames: the presets' batch
+INT8_CPU_FRAMES = 4             # card vs CPU on the first frames
+DETECTOR_ARGS = ["--batch_size", "32", "--num_epochs", "2", "--tail_dropout_p", "0.5"]
+DETECTOR_FRAMES, DETECTOR_CLASSES = 96, 27   # 3 steps an epoch
+MAC_VARIANT_LOGIT_ATOL = 1e-4   # the LSTM-kernel models' port-vs-JAX bound
+
+
+def _tensors_to(tree, device):
+    """A nested dict, tuple or list with its tensors moved to ``device`` (other
+    leaves kept)."""
+    if isinstance(tree, dict):
+        return {k: _tensors_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tensors_to(v, device) for v in tree)
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+def seeded_stem(dev):
+    """The engine's stem without weights on disk: the reference init from a
+    generator seeded STEM_SEED, 512 filters."""
+    gen = torch.Generator().manual_seed(STEM_SEED)
+    vgg = init_vgg_partial(gen)
+    det, det_state = init_obj_detector(gen)
+    return tuple(tree_to(t, dev) for t in (vgg, det, det_state))
+
+
+def int8_stem_fn(dev, calib, mode="improved"):
+    """The int8 stem of ``seeded_stem`` calibrated on ``calib`` (f32 /255
+    [B, T, 160, 208, 3]) -> stem_fn(video /255) -> features."""
+    vgg, det, det_state = seeded_stem(dev)
+    calibrate = quant.calibrate_stem_quant if mode == "improved" else quant.calibrate_act_scales
+    qstem = quant.quantize_stem(vgg, det, act_scales=calibrate(vgg, det, det_state, calib))
+    return lambda video: quant.stem_features_int8(qstem, det, det_state, video)
+
+
+def check_int8_stem(dev, card):
+    """Both calibrations at full width over seeded uint8 video [32, 35, 160,
+    208, 3] (no kernel launched): card vs CPU on one qstem, the feature error
+    against the f32 stem; then the int8 and the bf16 stem timed at 1,120
+    frames, their peak memory and top device ops. -> {label: ms}."""
+    vgg, det, det_state = seeded_stem(dev)
+    B, T = INT8_STEM_BATCH
+    x = normalize_video(seeded_video(B, T, torch.Generator(device=dev).manual_seed(31), dev))
+    with torch.no_grad():
+        f32 = stem_features(vgg, det, det_state, x, dtype=torch.float32, frame_chunk=160)
+    det_cpu = _tensors_to((det, det_state), "cpu")
+    frames = x.reshape(-1, *x.shape[2:])[:INT8_CPU_FRAMES]
+    qstems = {}
+    for mode in ("absmax", "improved"):
+        calibrate = quant.calibrate_stem_quant if mode == "improved" else \
+            quant.calibrate_act_scales
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        qstem = quant.quantize_stem(vgg, det, act_scales=calibrate(vgg, det, det_state, x))
+        torch.cuda.synchronize()
+        cal_s = time.perf_counter() - t0
+        feats = quant.stem_features_int8(qstem, det, det_state, x)
+        torch.cuda.synchronize()
+        expect_launches(f"int8 stem ({mode})", read_counters(), {})
+        rel = float(torch.linalg.norm(feats - f32) / torch.linalg.norm(f32))
+        q_cpu = _tensors_to(qstem, "cpu")
+        with torch.no_grad():
+            vgg_card = quant.vgg_features_int8(qstem, frames).cpu()
+            vgg_cpu = quant.vgg_features_int8(q_cpu, frames.cpu())
+            got = quant.stem_features_int8(qstem, det, det_state, frames[None]).cpu()
+            want = quant.stem_features_int8(q_cpu, *det_cpu, frames.cpu()[None])
+        same = float((got == want).float().mean())
+        stem_err = float((got - want).abs().max() / want.abs().max())
+        log(f"  int8 stem, {mode} calibration over {B * T} frames: {cal_s:.2f} s; features vs"
+            f" the f32 stem rel. L2 {rel:.4f} (bound {INT8_FEATURE_RTOL[mode]}); card vs CPU on"
+            f" one qstem, {INT8_CPU_FRAMES} frames: the VGG stage"
+            f" {'bit-equal' if torch.equal(vgg_card, vgg_cpu) else 'DIFFERENT'}, the whole stem"
+            f" {same:.4f} of features bit-equal, max |d| {stem_err:.3e} of the largest; no"
+            " kernel launched")
+        if not torch.equal(vgg_card, vgg_cpu):
+            raise AssertionError(f"int8 stem ({mode}): the card's VGG stage is not the CPU's")
+        if not (math.isfinite(rel) and rel <= INT8_FEATURE_RTOL[mode]):
+            raise AssertionError(f"int8 stem ({mode}): feature error {rel} past its bound")
+        qstems[mode] = qstem
+        del feats, q_cpu
+    del f32
+    torch.cuda.empty_cache()
+
+    qstem = qstems["improved"]
+    ms = {}
+    for label, fn in (("int8 stem (improved)",
+                       lambda: quant.stem_features_int8(qstem, det, det_state, x)),
+                      ("bf16 stem, vgg_block1",
+                       lambda: stem_features(vgg, det, det_state, x, use_kernel=True))):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            ms[label] = time_ms(fn, 3, 1)
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            busy, wall, rows = device_breakdown(fn, 8)
+        log(f"  {label} at {B * T} frames on {card}: {ms[label]:.2f} ms (CUDA events), peak"
+            f" {peak:.2f} GiB above the inputs; one call busy {busy:.2f} ms of {wall:.2f} ms"
+            " wall, by kernel:")
+        for name, t in rows:
+            log(f"    {t:9.4f} ms  {name[:110]}")
+    return ms
+
+
+def train_detector(dev, card, tmp):
+    """train_obj_detector --data at full width (512 filters, tail 1,024,
+    batch 32, dropout 0.5), 2 epochs of 3 steps on seeded frames: vgg_block1
+    once a step, every loss finite, the second epoch's mean under the
+    first's; the checkpoint and the export written. -> launches."""
+    r = np.random.default_rng(41)
+    data = os.path.join(tmp, "detector.npz")
+    np.savez(data, images=r.integers(0, 256, (DETECTOR_FRAMES, 160, 208, 3), dtype=np.uint8),
+             targets=(r.random((DETECTOR_FRAMES, DETECTOR_CLASSES)) < 0.1).astype(np.float32))
+    losses, step_ms = [], []
+    real = detector_mod.make_train_step
+
+    def timed(*a, **k):
+        step = real(*a, **k)
+
+        def run(state, images, targets):
+            t0 = time.perf_counter()
+            out = step(state, images, targets)
+            losses.append(float(out[1]))     # synchronizes
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        return run
+
+    detector_mod.make_train_step = timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    try:
+        detector_mod.main(["--data", data, *DETECTOR_ARGS,
+                           "--checkpoint_path", os.path.join(tmp, "det.npz"),
+                           "--export_pt", os.path.join(tmp, "obj_detect.pt")])
+    finally:
+        detector_mod.make_train_step = real
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    steps = len(losses)
+    log(f"  train_obj_detector --data, 512 filters, tail 1,024, batch 32, dropout 0.5, on"
+        f" {card}: {steps} steps in {wall:.1f} s; ms/step {np.mean(step_ms[1:]):.1f} (steps"
+        f" 2-{steps}), peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; losses"
+        f" {', '.join(f'{v:.4f}' for v in losses)}; launches {launches}")
+    expect_launches("train_obj_detector", launches, {"vgg_block1": steps})
+    half = steps // 2
+    if steps != 6 or not np.all(np.isfinite(losses)) or \
+            not np.mean(losses[half:]) < np.mean(losses[:half]):
+        raise AssertionError(f"train_obj_detector: losses {losses}")
+    sd = torch.load(os.path.join(tmp, "obj_detect.pt"), weights_only=False)["state_dict"]
+    if list(sd)[:2] != ["bn_input.weight", "bn_input.bias"] or "fc_tail2.bias" not in sd:
+        raise AssertionError("train_obj_detector: the export lacks the reference's keys")
+    return launches
+
+
+def mac_write_variants(dev):
+    """MAC with both write variants on (self-attention and the memory gate):
+    the eval forward at ZOO_SMALL with the kernels on the card (lstm 3 a
+    forward) against the plain one on the CPU, and 3 train steps card vs
+    CPU (TRAIN_* bounds). -> launches of the served forward."""
+    saved = mac_model.SELF_ATTENTION, mac_model.MEMORY_GATE
+    mac_model.SELF_ATTENTION = mac_model.MEMORY_GATE = True
+    try:
+        cfg = ModelConfig(model="mac", mac_dropout=0.0, **ZOO_SMALL)
+        spec = get_model("mac")
+        params, state = spec.init(torch.Generator().manual_seed(0), cfg, torch.device("cpu"))
+        if not {"write_attn", "write_mem", "write_control"} <= set(params["mac"]):
+            raise AssertionError("mac: the write variants' parameters are missing")
+        batch = train_batch(3, 6, 9, 19, 7, 70, (10, 13, 12))
+        torch.cuda.synchronize()
+        reset_counters()
+        with torch.inference_mode():
+            got, _ = spec.apply(tree_to(params, dev), tree_to(state, dev), tree_to(batch, dev),
+                                cfg, train=False)
+            torch.cuda.synchronize()
+            launches = read_counters()
+            want, _ = spec.apply(params, state, batch,
+                                 dataclasses.replace(cfg, use_pallas_kernels=False), train=False)
+        err = float((got.cpu() - want).abs().max())
+        expect_launches("mac with its write variants", launches, {"lstm": 3})
+        batches = [train_batch(3, 6, 9, 19, 7, 60 + i, (10, 13, 12)) for i in range(3)]
+        cpu = run_train_steps(cfg, torch.device("cpu"), batches, 1e-3)
+        reset_counters()
+        on_card = run_train_steps(cfg, dev, batches, 1e-3)
+        torch.cuda.synchronize()
+        expect_launches("mac with its write variants, train", read_counters(), {})
+        errs, passed = parity_errors(on_card, cpu, False)
+    finally:
+        mac_model.SELF_ATTENTION, mac_model.MEMORY_GATE = saved
+    log(f"  mac with both write variants, small config: served logits, kernels on the card vs"
+        f" plain on the CPU, max |d| {err:.3e} (bound {MAC_VARIANT_LOGIT_ATOL}), launches"
+        f" {launches}; 3 train steps card vs CPU: losses {on_card[0]} vs {cpu[0]}; "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + " (TRAIN_* bounds)")
+    if err > MAC_VARIANT_LOGIT_ATOL or not passed:
+        raise AssertionError("mac with its write variants: the card disagrees with the CPU")
+    return launches
+
+
+def stem_rest(dev, card):
+    """Phase 9 -> (launches summed over its counted paths, {label: ms})."""
+    t0 = time.perf_counter()
+    ms = check_int8_stem(dev, card)
+    total = dict.fromkeys(COUNTERS, 0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_detector_") as tmp:
+        for name, n in train_detector(dev, card, tmp).items():
+            total[name] += n
+    for name, n in mac_write_variants(dev).items():
+        total[name] += n
+    log(f"  stem phase on {card} in {time.perf_counter() - t0:.1f} s")
+    return total, ms
 
 
 def main():
@@ -2749,6 +3048,13 @@ def main():
         log("phase daemon")
         for name, n in daemon(card, tmp, data, os.path.join(tmp, "e0_film.npz")).items():
             launches[name] += n
+
+    log("phase stem")
+    stem_launches, stem_times = stem_rest(dev, card)
+    for name, n in stem_launches.items():
+        launches[name] += n
+    log(f"  int8 stem vs bf16 stem on {card}, 1,120 frames: "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in stem_times.items()))
 
     def entry(name, row, err):
         src, repl = REPO_SOURCE[name]

@@ -401,17 +401,11 @@ def test_mac_learning_rate_schedule_through_run_training(tiny_dir, monkeypatch,
     (q_and_v_test.main, ["--model", "concat3d", "--mesh_devices", "2"], "A8"),
     (q_and_v_eval.main, ["--model", "film_attn_pt", "--int8_trunk", "true",
                          "--mesh_devices", "2"], "A8"),
-    (q_and_v_eval.main, ["--model", "film_attn_pt", "--int8_stem", "true"], "A7"),
-    (q_and_v_eval.main, ["--model", "film_attn_pt", "--int8_stem_calibration", "absmax"],
-     "A7"),
     (q_and_v_eval.main, ["--model", "film_attn_pt", "--mesh_devices", "2"], "A8"),
     (q_and_v_eval.main, ["--model", "film_attn_pt", "--model_parallel", "2"], "A8"),
     (q_and_v_eval.main, ["--model", "film_attn_pt", "--distributed", "true"], "A8"),
     (q_and_v_eval.main, ["--model", "film_attn_pt", "--num_processes", "2"], "A8"),
-    (q_and_v_eval.main, ["--model", "film_attn_pt", "--q_encoder", "bow", "--int8_stem",
-                         "true"], "A7"),
     (q_and_v_eval.main, ["--model", "film_gp_pt", "--distributed", "true"], "A8"),
-    (q_and_v_test.main, ["--model", "film_gp_pt", "--int8_stem", "true"], "A7"),
     (v_only_test.main, ["--model", "cnn3d", "--model_parallel", "2"], "A8"),
     (q_only_test.main, ["--model", "bow", "--process_id", "1"], "A8"),
     (q_only_eval.main, ["--model", "lstm", "--mesh_devices", "4"], "A8"),

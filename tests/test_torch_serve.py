@@ -515,12 +515,9 @@ def test_stale_or_missing_cache_is_refused(data):
 
 
 @pytest.mark.parametrize("extra, item", [
-    (["--int8_stem", "true"], "A7"),
-    (["--int8_stem_calibration_video", "v.npy"], "A7"),
     (["--mesh_devices", "2"], "A8"),
     (["--model_parallel", "2"], "A8"),
     (["--model", "v_only_cnn3d", "--mesh_devices", "2"], "A8"),
-    (["--model", "film_gp_pt", "--int8_stem", "true"], "A7"),
     (["--q_encoder", "bow", "--model_parallel", "2"], "A8"),
 ])
 def test_unported_flags_exit_naming_their_item(data, extra, item):

@@ -19,15 +19,18 @@ It keeps the JAX harness's behaviour:
   only when a cache is missing or stale, and is dropped afterwards), then
   training and validation from those files through the native loader;
 - ``--int8_trunk``: the FiLM trunk's dynamic int8 convs in the eval step;
+- ``--int8_stem``: the frozen stem in int8 (``stem/quant.py``), calibrated
+  (``--int8_stem_calibration``) on the first batch of the train loader's
+  epoch 0 (``run_training``) or of the test loader (``run_test``);
 - the test split (``run_test``): deterministic frame picks, a checkpoint
   required, the final partial batch padded and counted on its real rows, the
   per-class accuracies and F1 under "Testing", and the ``t_``/``p_``/``q_``
   dumps of targets, predictions and question types beside the checkpoint
   (``cli/results_analysis.py`` reads them).
 
-Every zoo model runs. Flags the port does not run yet (the int8 stem,
-multi-GPU) stop the run with a ``SystemExit`` that names the ROADMAP item,
-whenever they are set away from their defaults. Entry points run on the card
+Every zoo model runs. Flags the port does not run yet (multi-GPU) stop the
+run with a ``SystemExit`` that names the ROADMAP item, whenever they are set
+away from their defaults. Entry points run on the card
 (``--device cuda``, the default) unless ``--device cpu`` is given.
 """
 
@@ -167,10 +170,14 @@ def build_q_and_v_parser():
                         help="feed batches through the native VNR loader ({split}.vnr, "
                              "packed at first use; see cli.pack_dataset)")
     parser.add_argument("--int8_stem", type=_true, default=False,
-                        help="refused: the int8 stem is not ported yet (ROADMAP A7)")
+                        help="run the frozen stem in int8, calibrated on the first batch "
+                             "(stem/quant.py); validate accuracy before paper-comparable runs")
     parser.add_argument("--int8_stem_calibration", type=str, default="improved",
                         choices=["absmax", "improved"],
-                        help="refused unless 'improved' (ROADMAP A7)")
+                        help="int8 stem calibration: 'improved' adds per-input-channel "
+                             "equalization, a 99.99th-percentile clip and bias correction "
+                             "(calibrate_stem_quant); 'absmax' is each conv input's absmax "
+                             "x 1.1 (calibrate_act_scales)")
     parser.add_argument("--feature_cache", type=_true, default=False,
                         help="train and validate from the frozen stem's features, extracted "
                              "once into features_{split}.fnr (cli.extract_features)")
@@ -189,8 +196,6 @@ def build_q_and_v_parser():
 
 # (flag, its default, the ROADMAP item that ports it)
 _REFUSED = (
-    ("int8_stem", False, "A7 (the int8 stem)"),
-    ("int8_stem_calibration", "improved", "A7 (the int8 stem)"),
     ("mesh_devices", 0, "A8 (multi-GPU)"),
     ("model_parallel", 1, "A8 (multi-GPU)"),
     ("distributed", False, "A8 (multi-GPU)"),
@@ -236,12 +241,18 @@ def cfg_from_args(args, model_name):
     )
 
 
-def load_stem(args, paths: DataPaths, device):
+def load_stem(args, paths: DataPaths, device, calibration_video=None):
     """The frozen stem as ``stem_fn(video /255) -> features``: VGG-16 from
     ``--frcnn_pretrained_path`` and the detector from the dataset's
     ``obj_detect.pt`` where those files exist, else the reference init from
-    a generator seeded 1234. It runs in ``--compute_dtype``; on the card VGG
-    block 1 runs through the ``vgg_block1`` kernel."""
+    a generator seeded 1234.
+
+    With ``--int8_stem true`` and a calibration batch (``calibration_video``,
+    [B, T, 160, 208, 3] f32, pixels /255) the stem is the int8 one, calibrated
+    on that batch by ``--int8_stem_calibration``; VGG block 1 is quantized
+    with the rest, so no kernel runs in it. Otherwise it runs in
+    ``--compute_dtype``, and on the card VGG block 1 runs through the
+    ``vgg_block1`` kernel."""
     from videonavqa_tpu_torch.stem import (
         STEM_SEED, init_obj_detector, init_vgg_partial, stem_features)
     from videonavqa_tpu_torch.utils import torch_import as ti
@@ -260,6 +271,23 @@ def load_stem(args, paths: DataPaths, device):
         print("=> No obj_detect.pt found - using random object detector")
         det_params, det_state = init_obj_detector(gen)
     vgg, det_p, det_s = (tree_to(t, device) for t in (vgg_params, det_params, det_state))
+
+    if getattr(args, "int8_stem", False) and calibration_video is not None:
+        from videonavqa_tpu_torch.stem import quant
+
+        mode = getattr(args, "int8_stem_calibration", "improved")
+        print(f"=> Calibrating int8 stem on one batch ({mode})")
+        calib = calibration_video.to(device=device, dtype=torch.float32)
+        calibrate = quant.calibrate_stem_quant if mode == "improved" else \
+            quant.calibrate_act_scales
+        qstem = quant.quantize_stem(vgg, det_p, act_scales=calibrate(vgg, det_p, det_s, calib))
+        del calib
+
+        def stem_fn(video):
+            return quant.stem_features_int8(qstem, det_p, det_s, video)
+
+        return stem_fn
+
     dtype = DTYPES[args.compute_dtype]
     use_kernel = device.type == "cuda"
 
@@ -267,6 +295,21 @@ def load_stem(args, paths: DataPaths, device):
         return stem_features(vgg, det_p, det_s, video, dtype=dtype, use_kernel=use_kernel)
 
     return stem_fn
+
+
+def calibration_batch(loader):
+    """The first batch of ``loader``'s epoch 0 as an int8-stem calibration
+    video: f32 [B, T, 160, 208, 3] pixels /255 (the JAX harness's). The
+    epoch's generator is closed at once, so the loader's workers for it end;
+    the run's epoch 0 starts again from the same batch."""
+    epoch = loader.epoch(0)
+    try:
+        first = next(iter(epoch))
+    finally:
+        close = getattr(epoch, "close", None)
+        if close is not None:
+            close()
+    return torch.from_numpy(np.ascontiguousarray(first["video"])).float() / 255.0
 
 
 # cached features arrive as the bits of their dtype (data/vnr.py)
@@ -316,10 +359,12 @@ class Harness:
 
         self.needs_stem = self.spec.uses_stem and getattr(args, "use_visual_features", True)
         # --feature_cache never runs the stem in a step; extraction loads its
-        # own stem where a cache file is missing or stale
+        # own stem where a cache file is missing or stale. The int8 stem is
+        # built once a calibration batch is at hand (run_training, run_test).
         cached = getattr(args, "feature_cache", False) and not q_only
+        int8 = getattr(args, "int8_stem", False)
         self.stem_fn = load_stem(args, self.paths, self.device) \
-            if self.needs_stem and not cached else None
+            if self.needs_stem and not cached and not int8 else None
         self.class_weights = None
         self.reduction = getattr(args, "loss_reduction", "mean") or "mean"
         # every batch reseeds it (batch_seed); the eval step draws from it too
@@ -490,6 +535,10 @@ def run_training(args, model_name, *, q_only=False, v_only=False, clip_value=Non
         val_loader = BatchLoader(val_ds, args.batch_size, shuffle=False, mode="val",
                                  **loader_kw)
 
+    if h.needs_stem and h.stem_fn is None:   # int8: calibrate on one batch
+        h.stem_fn = load_stem(args, h.paths, h.device,
+                              calibration_video=calibration_batch(train_loader))
+
     params, state = h.init_model()
     optimizer = make_optimizer(params, args.l_rate)
 
@@ -574,6 +623,9 @@ def run_test(args, model_name, *, q_only=False, v_only=False):
     meta = ckpt.load_checkpoint(args.checkpoint_path, params=params, state=state)
     if "val_acc" in meta:
         print("=> Restored checkpoint with val acc %s" % meta["val_acc"])
+    if h.needs_stem and h.stem_fn is None:   # int8: calibrate on one batch
+        h.stem_fn = load_stem(args, h.paths, h.device,
+                              calibration_video=calibration_batch(loader))
     eval_step = make_eval_step(h.spec, h.cfg, h.generator, reduction=h.reduction,
                                stem_fn=h.stem_fn)
 

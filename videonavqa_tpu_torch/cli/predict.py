@@ -6,7 +6,9 @@ question against the dataset's ``vocab.json``, decodes the video and picks
 its frames (1 of each 4, drawn from ``--seed``), then prints the answer and
 the five most probable. It runs on the card, the kernels on, unless
 ``--device cpu`` is given. ``--int8_trunk true`` runs the trunk's dynamic
-int8 convs, as the JAX entry point does.
+int8 convs, as the JAX entry point does. ``--int8_stem true`` changes
+nothing here, as there: with no calibration batch ``load_stem`` gives the
+stem in ``--compute_dtype``.
 
     python -m videonavqa_tpu_torch.cli.predict --model film_attn_pt \\
         --checkpoint_path e0_film.npz --data_dir /path/to/data \\

@@ -26,9 +26,11 @@ warm-up; a kernel that fails to build fails the start-up.
         --int8_trunk true --bucket_frames auto --max_batch 32 --port 8808
 
 The paths and bodies are ``serve/http.py``'s. SIGTERM or SIGINT stops
-accepting connections, answers every accepted request and exits. The int8
-stem (ROADMAP A7) and mesh serving (A8) are not ported: their flags exit
-naming the item.
+accepting connections, answers every accepted request and exits.
+``--int8_stem true`` serves a stem model from video through the int8 stem,
+calibrated at start-up on one stored video (``--int8_stem_calibration_video``,
+else the alphabetically first under ``videos/``). Mesh serving (ROADMAP A8)
+is not ported: its flags exit naming the item.
 """
 
 from __future__ import annotations
@@ -76,7 +78,9 @@ def build_parser():
                         help="micro-batches in flight on the card: at >= 2 the next batch's "
                              "staging and copy overlap the current forward (1 = synchronous)")
     parser.add_argument("--int8_stem_calibration_video", type=str, default=None,
-                        help="refused: the int8 stem is not ported yet (ROADMAP A7)")
+                        help="with --int8_stem (video mode): the stored video to calibrate "
+                             "the stem's activation scales on at start-up (default: the "
+                             "first video in videos/)")
     parser.add_argument("--warmup", type=_true, default=True,
                         help="build the kernels and run every serving shape (and the int8 "
                              "calibration) before accepting traffic")
@@ -135,7 +139,8 @@ def main(argv=None):
     signal.signal(signal.SIGINT, _drain)
     print(f"serving {args.model} on http://{args.host}:{server.server_address[1]} "
           f"(max_batch {args.max_batch}, kernels={engine.cfg.use_pallas_kernels}, "
-          f"int8_trunk={engine.cfg.use_int8_trunk}, device={engine.device}, "
+          f"int8_trunk={engine.cfg.use_int8_trunk}, int8_stem={engine.stem_is_int8}, "
+          f"device={engine.device}, "
           f"buckets={engine.frame_buckets or 'off'})")
     server.serve_forever()
     drain(server, batcher)

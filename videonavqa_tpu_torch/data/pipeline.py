@@ -262,6 +262,17 @@ class BatchLoader:
 
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = object()
+        closed = threading.Event()
+
+        def put(item):
+            """False once the consumer has closed the epoch."""
+            while not closed.is_set():
+                try:
+                    q.put(item, timeout=0.05)
+                    return True
+                except queue.Full:
+                    pass
+            return False
 
         def producer():
             try:
@@ -270,17 +281,25 @@ class BatchLoader:
                         idxs = order[s: s + self.batch_size]
                         examples = list(pool.map(
                             lambda i: self.ds.load_example(int(i), epoch), idxs))
-                        q.put(self._collate(examples, len(examples)))
+                        if not put(self._collate(examples, len(examples))):
+                            return
             except BaseException as e:  # raised again on the consumer's side
-                q.put(e)
+                put(e)
                 return
-            q.put(stop)
+            put(stop)
 
-        threading.Thread(target=producer, daemon=True).start()
-        while True:
-            item = q.get()
-            if item is stop:
-                break
-            if isinstance(item, BaseException):
-                raise item
-            yield item
+        thread = threading.Thread(target=producer, daemon=True)
+        thread.start()
+        try:
+            while True:
+                item = q.get()
+                if item is stop:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            # an epoch closed early (e.g. after its first batch) ends its
+            # producer and workers too, once the batch in hand is loaded
+            closed.set()
+            thread.join()

@@ -8,8 +8,8 @@
 
 The recurrence carries nothing across frames, so all frames fold into one
 [B*T] batch; only the tail LSTM runs over frames. The write unit's
-self-attention and memory-gate variants are off in the reference and are not
-ported. Control attention runs over the batch's max question length; padded
+self-attention and memory-gate variants are off in the reference, as here
+(below). Control attention runs over the batch's max question length; padded
 words within it see context = the lstm_proj bias.
 
 With ``cfg.use_pallas_kernels`` the eval forward's three LSTM passes
@@ -20,6 +20,14 @@ one control mask and one memory mask over the folded rows, drawn once a
 forward from the caller's generator and applied at every step; and, whenever
 autograd records, each step is recomputed in the backward pass instead of
 keeping its [N, 130, dim] read activations (JAX's ``jax.checkpoint``).
+
+The write unit's two variants of the reference, off there and here
+(``SELF_ATTENTION``, ``MEMORY_GATE``; each adds its parameters to the init):
+self-attention adds ``write_mem`` of the memories attended by the new
+control over the earlier controls, and the gate mixes the memory before the
+step back in, ``g * m_prev + (1 - g) * m_new`` with ``g`` a sigmoid of the
+new control. With either on, the cell keeps its control and memory histories
+and recomputes no step, as the JAX cell does.
 """
 
 from __future__ import annotations
@@ -35,6 +43,9 @@ from videonavqa_tpu_torch.ops.linear import embedding, linear
 from videonavqa_tpu_torch.ops.lstm import bilstm, last_valid, lstm
 from videonavqa_tpu_torch.ops.masking import mask_invalid, word_softmax_mask
 from videonavqa_tpu_torch.utils.device import tree_to
+
+SELF_ATTENTION = False
+MEMORY_GATE = False
 
 
 def init_fn(gen, cfg, device):
@@ -67,6 +78,12 @@ def init_fn(gen, cfg, device):
                              "bias": torch.zeros(2 * dim)}
     params["classifier2"] = init.reference_linear(gen, cfg.num_classes, 2 * dim)
     params["lstm_tail"] = init.torch_default_lstm(gen, 3 * dim, 3 * dim)
+    # drawn last, so the other parameters are the same with a variant on
+    if SELF_ATTENTION:
+        params["mac"]["write_attn"] = init.reference_linear(gen, 1, dim)
+        params["mac"]["write_mem"] = init.reference_linear(gen, dim, dim)
+    if MEMORY_GATE:
+        params["mac"]["write_control"] = init.reference_linear(gen, 1, dim)
     return tree_to(params, device), {}
 
 
@@ -107,33 +124,59 @@ def mac_recurrence(mac, context, question, know, word_mask, frames, cfg, masks=N
     know_part = linear({"weight": w_read[:, dim:], "bias": mac["read_concat"]["bias"]}, know)
     w_mem_part = {"weight": w_read[:, :dim]}
 
-    def step(i, control, memory, control_mask, memory_mask):
-        # control unit: attention over the words
+    def control_unit(i, control, control_mask):
+        # attention over the words
         pa = rep(linear(mac["position_aware"][i], question))
         cq = linear(mac["control_question"], torch.cat([control, pa], dim=1))
         logits = linear(mac["control_attn"], cq[:, None, :] * context_n)[..., 0] + word_mask
         control = torch.einsum("nt,ntd->nd", torch.softmax(logits, dim=1), context_n)
-        if control_mask is not None:
-            control = control * control_mask
-        # read unit: attention over the knowledge cells, from the memory
-        # before the write and the control just updated
+        return control if control_mask is None else control * control_mask
+
+    def read_unit(memory, control):
+        # attention over the knowledge cells, from the memory before the
+        # write and the control just updated
         mem = linear(mac["read_mem"], memory)
         concat = linear(w_mem_part, mem[:, None, :] * know).add_(know_part)   # [N, P, dim]
         rattn = torch.softmax(linear(mac["read_attn"], concat.mul_(control[:, None, :]))[..., 0],
                               dim=1)
-        read = torch.einsum("np,npd->nd", rattn, know)
-        # write unit
-        memory = linear(mac["write_concat"], torch.cat([read, memory], dim=1))
+        return torch.einsum("np,npd->nd", rattn, know)
+
+    def step(i, control, memory, control_mask, memory_mask):
+        control = control_unit(i, control, control_mask)
+        memory = linear(mac["write_concat"], torch.cat([read_unit(memory, control), memory], dim=1))
         if memory_mask is not None:
             memory = memory * memory_mask
         return control, memory
 
+    if not (SELF_ATTENTION or MEMORY_GATE):
+        for i in range(cfg.mac_max_step):
+            if torch.is_grad_enabled():
+                control, memory = checkpoint(step, i, control, memory, control_mask,
+                                             memory_mask, use_reentrant=False)
+            else:
+                control, memory = step(i, control, memory, control_mask, memory_mask)
+        return memory
+
+    # the write unit's variants read the control and memory histories
+    controls, memories = [control], [memory]
     for i in range(cfg.mac_max_step):
-        if torch.is_grad_enabled():
-            control, memory = checkpoint(step, i, control, memory, control_mask, memory_mask,
-                                         use_reentrant=False)
-        else:
-            control, memory = step(i, control, memory, control_mask, memory_mask)
+        control = control_unit(i, control, control_mask)
+        memory = linear(mac["write_concat"],
+                        torch.cat([read_unit(memories[-1], control), memories[-1]], dim=1))
+        if SELF_ATTENTION:
+            # the new control attends over the earlier ones, and the memory
+            # takes the memories of those steps under that attention
+            a = linear(mac["write_attn"], control[:, None, :] * torch.stack(controls, dim=1))
+            a = torch.softmax(a[..., 0], dim=1)                          # [N, S]
+            attended = torch.einsum("ns,nsd->nd", a, torch.stack(memories, dim=1))
+            memory = linear(mac["write_mem"], attended) + memory
+        if MEMORY_GATE:
+            gate = torch.sigmoid(linear(mac["write_control"], control))   # [N, 1]
+            memory = gate * memories[-1] + (1 - gate) * memory
+        if memory_mask is not None:
+            memory = memory * memory_mask
+        controls.append(control)
+        memories.append(memory)
     return memory
 
 

@@ -1,4 +1,4 @@
-"""int8 convolutions of the serving trunk, in plain PyTorch.
+"""int8 convolutions of the serving trunk and the int8 stem, in plain PyTorch.
 
 Weights quantize per output channel (symmetric absmax); activations per
 tensor with a calibrated absmax. The int8 product is exact: ``torch._int_mm``
@@ -51,7 +51,12 @@ def quantize_act_dynamic(x):
 
 
 def conv_i8(xq, wq):
-    """int8 SAME conv, stride 1 -> int32. xq [N, H, W, C], wq [O, C, kh, kw]."""
+    """int8 SAME conv, stride 1 -> int32. xq [N, H, W, C], wq [O, C, kh, kw].
+
+    ``torch._int_mm`` on the card wants the contraction a multiple of 8 (and
+    more than 16 rows); a 3x3 conv over 3 channels (VGG's conv1_1, 27) runs
+    with its im2col and weight padded with zero columns to the next multiple,
+    which leaves every sum as it is."""
     N, H, W, Cin = xq.shape
     O, _, kh, kw = wq.shape
     if kh == 1 and kw == 1:
@@ -60,18 +65,26 @@ def conv_i8(xq, wq):
     ph, pw = kh // 2, kw // 2
     xp = xq.new_zeros((N, H + 2 * ph, W + 2 * pw, Cin))
     xp[:, ph:ph + H, pw:pw + W] = xq
+    K = kh * kw * Cin
+    Kp = -(-K // 8) * 8
     # im2col as one strided view [N, H, W, kh, kw, C] of the padded input, in
     # the (i, j, c) order of the weight below; reshape copies it per chunk.
     # The copy costs per element, so it moves 4-byte words where it can.
-    xw = xp.view(torch.int32) if Cin % 4 == 0 else xp
+    xw = xp.view(torch.int32) if Cin % 4 == 0 and Kp == K else xp
     sN, sH, sW, _ = xw.stride()
     cols = xw.as_strided((N, H, W, kh, kw, xw.shape[-1]), (sN, sH, sW, sH, sW, 1))
-    w2 = wq.permute(0, 2, 3, 1).reshape(O, kh * kw * Cin)  # [O, kh*kw*Cin]
+    w2 = wq.permute(0, 2, 3, 1).reshape(O, K)  # [O, kh*kw*Cin]
+    if Kp != K:
+        w2 = torch.cat([w2, w2.new_zeros((O, Kp - K))], dim=1)
     acc = torch.empty((N * H * W, O), dtype=torch.int32, device=xq.device)
-    step = max(1, _IM2COL_CHUNK_BYTES // (H * W * kh * kw * Cin))
+    step = max(1, _IM2COL_CHUNK_BYTES // (H * W * Kp))
     for n0 in range(0, N, step):
         n1 = min(N, n0 + step)
-        a = cols[n0:n1].reshape((n1 - n0) * H * W, -1).view(torch.int8)
+        if Kp == K:
+            a = cols[n0:n1].reshape((n1 - n0) * H * W, -1).view(torch.int8)
+        else:
+            a = xq.new_zeros(((n1 - n0) * H * W, Kp))
+            a.view(n1 - n0, H, W, Kp)[..., :K].unflatten(-1, (kh, kw, Cin)).copy_(cols[n0:n1])
         torch._int_mm(a, w2.t(), out=acc[n0 * H * W:n1 * H * W])
     return acc.reshape(N, H, W, O)
 

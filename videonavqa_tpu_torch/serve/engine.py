@@ -10,8 +10,11 @@ frames ``[T, 160, 208, 3]`` for one that takes video itself or, in video mode
 (``from_video=True``), for a stem model too, and nothing visual for a
 question-only model. In video mode a stem model's frames go /255, then
 through the frozen stem in ``cfg.compute_dtype``, VGG block 1 through its
-kernel where ``cfg.use_pallas_kernels`` asks for it. With the int8 trunk, the
-first micro-batch runs the f32 calibration forward on the padded batch
+kernel where ``cfg.use_pallas_kernels`` asks for it, or, with the daemon's
+``--int8_stem true``, through the int8 stem (``stem/quant.py``), calibrated
+at start-up on one stored video (``stem_calibration_batch``; a ``reload``
+leaves that calibration as it is, the stem being frozen). With the int8
+trunk, the first micro-batch runs the f32 calibration forward on the padded batch
 exactly as it stands (padding rows enter the absmax; in video mode on the
 stem's output) and every later batch serves static int8 from the recorded
 state.
@@ -77,6 +80,33 @@ def _host_view(t):
     return t.view(_BITS[t.dtype]).numpy() if t.dtype in _BITS else t.numpy()
 
 
+def stem_calibration_batch(args, paths, rng):
+    """The int8 stem's calibration batch of the daemon in video mode: one
+    stored video (``--int8_stem_calibration_video``, else the alphabetically
+    first ``.mp4`` or ``.npy`` under ``videos/``), subsampled with ``rng``
+    (the engine's frame picks), trimmed to its ``v_len`` frames (zero padding
+    adds nothing to an absmax) -> f32 [1, v_len, 160, 208, 3], pixels /255."""
+    from videonavqa_tpu_torch.data.pipeline import _decode_video, subsample_frames
+
+    name = getattr(args, "int8_stem_calibration_video", None)
+    if not name:
+        try:
+            name = sorted(f for f in os.listdir(paths.videos_dir)
+                          if f.endswith((".mp4", ".npy")))[0]
+        except (FileNotFoundError, IndexError):
+            raise SystemExit(
+                "--int8_stem serving calibrates on a stored video at startup but none were "
+                f"found in {paths.videos_dir}; pass --int8_stem_calibration_video <path>")
+    path = name if os.path.isabs(name) else os.path.join(paths.videos_dir, name)
+    for ext in (".mp4", ".npy"):
+        if path.endswith(ext):
+            path = path[:-len(ext)]
+    frames, v_len = subsample_frames(_decode_video(path), rng)
+    print(f"=> int8 stem: calibrating on {name} ({v_len} frames)")
+    calib = frames[None, :max(int(v_len), 1)]
+    return torch.from_numpy(np.ascontiguousarray(calib)).float() / 255.0
+
+
 class InferenceEngine:
     """Loads the model once; serves padded fixed-shape micro-batches.
 
@@ -108,6 +138,7 @@ class InferenceEngine:
             raise ValueError(f"{cfg.model} takes no video: video mode serves a model that "
                              "uses the frozen stem or takes raw frames")
         self.stem = None
+        self.stem_is_int8 = False    # from_args sets it: --int8_stem in video mode
         if from_video and self.spec.uses_stem:
             if stem is None:
                 gen = torch.Generator().manual_seed(STEM_SEED)
@@ -164,9 +195,6 @@ class InferenceEngine:
         from videonavqa_tpu_torch.data.pipeline import DataPaths, load_json
 
         refuse_unported(args, args.model)
-        if getattr(args, "int8_stem_calibration_video", None):
-            raise SystemExit("--int8_stem_calibration_video: the int8 stem is not ported yet "
-                             "(ROADMAP A7)")
         device = resolve_device(args.device)
         cfg = cfg_from_args(args, args.model)
         use_kernels = args.use_pallas_kernels
@@ -214,10 +242,18 @@ class InferenceEngine:
             buckets = None
 
         from_video = spec.uses_stem and not cached
-        stem = load_stem(args, paths, device) if from_video else None
+        # the frame picks of requests come from this RandomState, after the
+        # calibration video's, as in the JAX daemon
+        rng = np.random.RandomState(args.seed)
+        calib = None
+        if from_video and getattr(args, "int8_stem", False):
+            calib = stem_calibration_batch(args, paths, rng)
+        stem = load_stem(args, paths, device, calibration_video=calib) if from_video else None
         eng = cls(cfg, checkpoint_path=args.checkpoint_path, seed=args.seed,
                   max_batch=args.max_batch, frame_buckets=buckets, device=device,
                   from_video=from_video, stem=stem)
+        eng.stem_is_int8 = calib is not None
+        eng.rng = rng
         eng.paths = paths
         vocab_path = os.path.join(args.data_dir, "vocab.json")
         eng.vocab = load_json(vocab_path) if os.path.exists(vocab_path) else None

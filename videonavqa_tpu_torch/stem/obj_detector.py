@@ -1,14 +1,17 @@
-"""ObjDetectCNN in its pretrained-features mode: the second stage of the frozen
-stem (the counterpart of videonavqa_tpu/stem/obj_detector.py).
+"""ObjDetectCNN: the second stage of the frozen stem, and a 27-way
+multi-label object detector of its own (the counterpart of
+videonavqa_tpu/stem/obj_detector.py).
 
     BN(128) -> [conv3x3 -> conv3x3 -> BN -> ReLU -> maxpool2] x3
+            -> flatten -> FC(tail_hidden) -> BN -> ReLU -> FC(nb_classes)
 
 with the reference's quirks kept: the two convs of a block run back to back
-with no activation between them, and the features are taken after block 3's
-ReLU, skipping pool3, giving 512 channels at 10x13 from the VGG stem's 128 at
-40x52. It runs frozen, in eval mode. The classification tail (flatten,
-fc_tail1, BN, ReLU, fc_tail2) is initialized so the parameter tree matches,
-but its forward is not ported.
+with no activation between them, and in the pretrained-features mode
+(``obj_detector_features``) the features are taken after block 3's ReLU,
+skipping pool3, giving 512 channels at 10x13 from the VGG stem's 128 at
+40x52; that mode runs frozen, in eval mode. The classification mode
+(``obj_detector``) keeps pool3 and the tail; it trains too
+(``cli/train_obj_detector.py``), its BatchNorms then on batch statistics.
 
 ``stem_features`` runs the whole frozen stem over a video batch, frames folded
 into the batch axis.
@@ -20,6 +23,7 @@ import torch
 
 from videonavqa_tpu_torch.ops import initializers as init
 from videonavqa_tpu_torch.ops.conv import conv2d, max_pool2d
+from videonavqa_tpu_torch.ops.linear import linear, linear_chw
 from videonavqa_tpu_torch.ops.norm import batch_norm
 from videonavqa_tpu_torch.stem.vgg import vgg_partial, vgg_partial_block1_kernel
 
@@ -51,6 +55,37 @@ def obj_detector_features(params, state, x, *, dtype=torch.bfloat16):
         if b < 3:
             h = max_pool2d(h)
     return h
+
+
+def obj_detector(params, state, x, *, train=False, logits=True, generator=None,
+                 tail_dropout_p=0.0, dropout_mask=None, dtype=torch.bfloat16):
+    """The detector's classification mode: [N, 40, 52, 128] -> ([N,
+    nb_classes] f32, new_state), multi-label (``logits=False``: sigmoids).
+
+    Train mode normalizes on batch statistics and returns the new running
+    ones. Pool3 gives [N, 5, 6, F], which enters fc_tail1 flattened in the
+    reference's NCHW order (``linear_chw``; so the frames must be 160x208).
+    In train mode with ``tail_dropout_p`` > 0 the tail's units drop where
+    ``dropout_mask`` (bool, True = kept) is False, or as drawn from
+    ``generator``; with neither, none drop (the JAX forward without an rng)."""
+    new_state = dict(state)
+    h, new_state["bn_input"] = batch_norm(params["bn_input"], state["bn_input"], x, train=train)
+    for b in range(1, 4):
+        h = conv2d(params[f"conv{b}1"], h, dtype=dtype)
+        h = conv2d(params[f"conv{b}2"], h, dtype=dtype)
+        h, new_state[f"bn{b}"] = batch_norm(params[f"bn{b}"], state[f"bn{b}"], h, train=train)
+        h = max_pool2d(torch.relu(h))
+    h = linear_chw(params["fc_tail1"], h)
+    h, new_state["bn_tail1"] = batch_norm(params["bn_tail1"], state["bn_tail1"], h, train=train)
+    h = torch.relu(h)
+    if train and tail_dropout_p > 0.0 and (dropout_mask is not None or generator is not None):
+        keep_p = 1.0 - tail_dropout_p
+        if dropout_mask is None:
+            dropout_mask = torch.bernoulli(torch.full(h.shape, keep_p, device=h.device),
+                                           generator=generator).bool()
+        h = torch.where(dropout_mask, h / keep_p, 0.0)
+    out = linear(params["fc_tail2"], h)
+    return (out if logits else torch.sigmoid(out)), new_state
 
 
 def stem_features(vgg_params, det_params, det_state, video, *, dtype=torch.bfloat16,

@@ -135,6 +135,27 @@ def stem_from_jax(vgg_np, det_params_np, det_state_np, device):
                  for t in (vgg_np, det_params_np, det_state_np))
 
 
+def qstem_from_jax(qstem_np, device):
+    """The port's int8 stem (``stem/quant.py quantize_stem``'s tree) on
+    ``device`` from the tree JAX's ``quantize_stem`` returns, as numpy: the
+    HWIO int8 kernels become OIHW; ``sw``, ``bias`` and the activation
+    quantizer's ``m`` (a scalar, or per input channel where equalized) and
+    ``s`` pass as f32, a Python float as the f32 JAX computes with."""
+    def layer(lay):
+        out = {"wq": _to_torch(np.asarray(lay["wq"])).contiguous(),
+               "sw": torch.tensor(np.asarray(lay["sw"], np.float32)),
+               "bias": torch.tensor(np.asarray(lay["bias"], np.float32))}
+        if lay.get("aq") is not None:
+            out["aq"] = {k: torch.tensor(np.asarray(lay["aq"][k], np.float32))
+                         for k in ("m", "s")}
+        return tree_to(out, device)
+
+    scales = qstem_np.get("act_scales")
+    return {"vgg": {k: layer(v) for k, v in qstem_np["vgg"].items()},
+            "det": {k: layer(v) for k, v in qstem_np["det"].items()},
+            "act_scales": None if scales is None else {k: float(v) for k, v in scales.items()}}
+
+
 # --- Adam's state ----------------------------------------------------------
 
 def _adam_group(optimizer):

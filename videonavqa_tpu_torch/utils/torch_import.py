@@ -4,7 +4,8 @@ of the JAX package's utils/torch_import.py).
 - ``vgg16_caffe.pth``, the Caffe-weights VGG-16 of the Faster R-CNN fork
   (``features.N.*`` keys, perhaps under a module prefix): its first four
   convs are the partial VGG stem;
-- ``obj_detect.pt``, the trained ObjDetectCNN (``{'state_dict': ...}``).
+- ``obj_detect.pt``, the trained ObjDetectCNN (``{'state_dict': ...}``),
+  which ``export_obj_detector_pt`` writes from a detector trained here.
 
 The port keeps torch's layouts (conv OIHW, Linear ``[out, in]``), so the
 tensors pass as they are; the result is what ``stem_from_jax`` makes of the
@@ -63,3 +64,29 @@ def import_obj_detector(sd):
         params["bn_tail1"], state["bn_tail1"] = _bn(sd, "bn_tail1")
         params["fc_tail2"] = _weight_bias(sd, "fc_tail2")
     return params, state
+
+
+def export_obj_detector_pt(params, state, path):
+    """The inverse of ``import_obj_detector``: ``{'state_dict': ...}`` with the
+    reference's keys, in its order, and torch's layouts (CPU tensors), so a
+    detector trained here drops into the reference's ``obj_detect.pt`` slot."""
+    sd = {}
+
+    def put(prefix, tensors):
+        for key, t in tensors.items():
+            sd[f"{prefix}.{key}"] = t.detach().to("cpu", copy=True).contiguous()
+
+    def put_bn(prefix, p, s):
+        put(prefix, {"weight": p["weight"], "bias": p["bias"], "running_mean": s["mean"],
+                     "running_var": s["var"]})
+        sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+
+    put_bn("bn_input", params["bn_input"], state["bn_input"])
+    for b in range(1, 4):
+        put(f"conv{b}1", params[f"conv{b}1"])
+        put(f"conv{b}2", params[f"conv{b}2"])
+        put_bn(f"bn{b}", params[f"bn{b}"], state[f"bn{b}"])
+    put("fc_tail1", params["fc_tail1"])
+    put_bn("bn_tail1", params["bn_tail1"], state["bn_tail1"])
+    put("fc_tail2", params["fc_tail2"])
+    torch.save({"state_dict": sd}, path)
