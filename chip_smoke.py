@@ -20,11 +20,15 @@ kernel's plain version):
              and 1536) up to 64 batch rows; attn_tail also at attention
              sizes it pads (64, 200), 100 frames and 64 batch rows; the two
              hidden-128 kernels on the shared chain (film_reencode, lstm)
-             against recorded digests of their outputs' bits; then the
-             int8 row gate: both routes of a trunk block's 1x1 conv (the
-             fused kernel; conv2d_int8_prequant, ReLU and the 3x3 conv's
-             quantize) timed at the served folded row counts and above
-             them, held against INT8_FUSED_MAX_ROWS;
+             against recorded digests of their outputs' bits; the int8
+             kernel also with its stored requantization source
+             (``requant_stored``) at 4,550 and 145,600 rows, its yq
+             bit-equal to quantize_act of the y it stored, both sources
+             timed; then the int8 row gate: both routes of a trunk block's
+             1x1 conv (the fused kernel, requantizing from the source the
+             trunk picks at that count; conv2d_int8_prequant, ReLU and the
+             3x3 conv's quantize) timed at the served folded row counts and
+             above them, held against INT8_FUSED_MAX_ROWS;
 4. serve   — InferenceEngine at the film_attn_pt eval.sh preset (5 FiLM
              blocks x 1024 channels, hidden/attention/embed 128, 512 input
              channels, bf16, 35 frames, 56 tokens, 134 words, 70 classes)
@@ -53,10 +57,12 @@ kernel's plain version):
              batch 64 (its wide LSTMs in two launches of 32 rows a pass);
              film_gp_pt at its eval.sh preset (4 FiLM blocks x 1024
              channels, 32 tail channels, the int8 trunk) and film_attn_pt's
-             preset with the BoW question encoder over the same features
-             (batch 32 at buckets 20 and 35, batch 1: the re-encode once a
-             forward, or, under BoW, never and the attention tail once; the
-             fused int8 1x1 once a block); concat3d at the defaults (lstm
+             preset with the BoW question encoder (int8 trunk; its batch 1
+             held to the port on the CPU, as the two routes requantize from
+             other sources there) over the same features (batch 32 at
+             buckets 20 and 35, batch 1: the re-encode once a forward, or,
+             under BoW, never and the attention tail once; the fused int8
+             1x1 once a block); concat3d at the defaults (lstm
              once a forward); v_only_cnn3d through the engine from uint8
              video at buckets 8, 16, 24 and 35 (batch 32; batch 1 at 8 and
              35), its zero-run computed at load, no kernel; bow at batch
@@ -142,6 +148,16 @@ kernel's plain version):
              results_analysis run over the dumps each wrote. Every loss
              finite, every JSONL stream with its epoch events; each run's
              wall time and examples/s printed;
+7b. interchange — the reference checkpoint interchange on the harness
+             phase's dataset, at film_attn_pt's eval.sh preset: seeded
+             weights written as a reference .pt (utils/zoo_export.py), an
+             engine started from it (every imported leaf bit-equal, the five
+             conv1x1 leaves named as drawn), batch 32 at buckets 20 and 35
+             and batch 1 served from seeded features with film_reencode,
+             attn_tail and int8_matmul_fused counted and held to the plain
+             path; one q_and_v_eval epoch resumed from the .pt (epoch 1,
+             Adam's count that epoch's steps); cli/export_checkpoint from
+             that epoch's npz, read back bit-equal but for conv1x1;
 8. daemon  — the serving half on the harness phase's dataset:
              cli/extract_features.py over the test split (32 videos) in bf16
              and in fp8 (vgg_block1 counted; two videos' stored planes equal
@@ -201,6 +217,7 @@ import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -212,6 +229,7 @@ import torch
 import torch.nn.functional as F
 
 from videonavqa_tpu_torch.cli import common as harness_mod
+from videonavqa_tpu_torch.cli import export_checkpoint as export_cli
 from videonavqa_tpu_torch.cli import extract_features as extract_mod
 from videonavqa_tpu_torch.cli import predict as predict_mod
 from videonavqa_tpu_torch.cli import q_and_v_eval, q_and_v_test, q_only_eval, q_only_test
@@ -233,7 +251,8 @@ from videonavqa_tpu_torch.models import concat2d as concat_mod
 from videonavqa_tpu_torch.models import mac as mac_model
 from videonavqa_tpu_torch.models import q_only_lstm
 from videonavqa_tpu_torch.models import v_only_cnn3d as c3d_mod
-from videonavqa_tpu_torch.models.film import INT8_FUSED_MAX_ROWS, film_values_over_frames
+from videonavqa_tpu_torch.models.film import (
+    INT8_FUSED_MAX_ROWS, INT8_REQUANT_F32_MAX_ROWS, film_values_over_frames)
 from videonavqa_tpu_torch.models.time_multi_hop import film_values_all_frames
 from videonavqa_tpu_torch.ops import initializers as init
 from videonavqa_tpu_torch.ops.masking import attn_frame_mask, length_mask
@@ -245,9 +264,12 @@ from videonavqa_tpu_torch.serve.loadgen import request as http
 from videonavqa_tpu_torch.stem import init_obj_detector, init_vgg_partial, stem_features
 from videonavqa_tpu_torch.stem import quant
 from videonavqa_tpu_torch.train.step import (
-    make_eval_step, make_optimizer, make_train_step, tree_items, tree_leaves)
-from videonavqa_tpu_torch.utils.checkpoint import save_checkpoint
+    forward, make_eval_step, make_optimizer, make_train_step, tree_items, tree_leaves)
+from videonavqa_tpu_torch.utils.checkpoint import (
+    OPT_INNER_COUNT, epoch_path, params_from_jax, read_npz, save_checkpoint)
 from videonavqa_tpu_torch.utils.device import tree_to
+from videonavqa_tpu_torch.utils.zoo_export import save_reference_checkpoint
+from videonavqa_tpu_torch.utils.zoo_import import import_model_checkpoint
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -773,7 +795,58 @@ def check_int8_matmul(dev):
                     f" plain {r['plain_ms']:.4f} ms,"
                     f" torch._int_mm alone {r['library_ms']:.4f} ms, bound {b_ms:.5f} ms by {b_by}")
             rows.setdefault("errs", []).append(err)
+    rows["stored"] = check_int8_requant_stored(dev, wq2, w_scale, bias, gen)
     return rows
+
+
+# Folded rows of the stored-source check: batch 1 and batch 32 at 35 frames.
+STORED_ROWS = (4550, 145600)
+
+
+def check_int8_requant_stored(dev, wq2, w_scale, bias, gen):
+    """The kernel's second requantization source (``requant_stored``, the
+    JAX package's plain route, which the trunk takes above
+    INT8_REQUANT_F32_MAX_ROWS) at STORED_ROWS, bf16 x and y with ReLU: y
+    within one bf16 ulp of the plain version's, as with the f32 source, and
+    yq bit-equal to ``quantize_act`` of the y the kernel stored and to the
+    plain version's stored-source yq. Times the kernel with each source, in
+    turns (f32, stored, stored, f32). -> {rows: (f32-source ms, stored ms)}."""
+    C = wq2.shape[0]
+    out = {}
+    for M in STORED_ROWS:
+        x = torch.relu(torch.randn((M, C), generator=gen)).to(dev).to(torch.bfloat16)
+        sx = act_scale(1.25 * x.float().abs().amax())
+        comb = (sx * w_scale).contiguous()
+        y_ref, _ = int8_mod.int8_matmul_plain(x, wq2, comb, bias, sx, None, relu=True,
+                                              out_dtype=torch.float32)
+        nx = act_scale(1.25 * y_ref.abs().amax())
+        args = (x, wq2, comb, bias, sx, nx)
+        y, yq = int8_mod.int8_matmul_2d(*args, relu=True, requant_stored=True)
+        y_p, yq_p = int8_mod.int8_matmul_plain(*args, relu=True, out_dtype=torch.bfloat16,
+                                               requant_stored=True)
+        _, yq_f32 = int8_mod.int8_matmul_2d(*args, relu=True)
+        torch.cuda.synchronize()
+        off_ulp = int(((y.float() - y_p.float()).abs() > _bf16_ulp(y_p.float())).sum())
+        own = int((yq != quantize_act(y.float(), nx)).sum())
+        plain = int((yq != yq_p).sum())
+        moved = float((yq != yq_f32).float().mean())
+        log(f"  int8_matmul_fused M={M} requant_stored: y elements beyond 1 bf16 ulp {off_ulp};"
+            f" yq differing from quantize_act(stored y) {own}, from the plain version {plain}"
+            f" (share of codes the f32 source gives otherwise: {moved:.2e})")
+        if off_ulp or own or plain:
+            raise AssertionError(f"int8_matmul_fused M={M} requant_stored: disagrees")
+        del y, yq, y_p, yq_p, yq_f32, y_ref
+        iters = max(10, 200 * 4550 // M)
+        t = [kernel_device_ms(lambda st=st: int8_mod.int8_matmul_2d(
+                 *args, relu=True, requant_stored=st), "int8_matmul_kernel", iters=iters)
+             for st in (False, True, True, False)]
+        out[M] = ((t[0] + t[3]) / 2, (t[1] + t[2]) / 2)
+        log(f"  int8_matmul_fused M={M} device ms, f32 source {t[0]:.4f} / {t[3]:.4f},"
+            f" stored source {t[1]:.4f} / {t[2]:.4f}"
+            f" ({out[M][1] / out[M][0] - 1:+.1%})")
+        del x, args
+        torch.cuda.empty_cache()
+    return out
 
 
 # Folded rows (B x T x 10 x 13) of the gate sweep: those at which the trunk's
@@ -792,11 +865,13 @@ def sweep_int8_gate(dev):
     - plain: ``conv2d_int8_prequant`` (quantize, ``torch._int_mm``,
       dequant), ReLU, and the quantize the 3x3 conv then does itself.
 
-    Holds the two against each other (y within one bf16 ulp; yq within one
-    int8 step, since the kernel requantizes the f32 y and the plain route the
-    stored bf16 one), and INT8_FUSED_MAX_ROWS against the times: raises
-    unless the fused route is the faster at every count at or under the gate
-    and the plain route at every count above it.
+    The fused route requantizes from the source the trunk picks at that
+    count (the f32 y at or under INT8_REQUANT_F32_MAX_ROWS, else the stored
+    one). Holds the two routes against each other (y within one bf16 ulp; yq
+    bit-equal where both quantize the stored y, else within one int8 step),
+    and INT8_FUSED_MAX_ROWS against the times: raises unless the fused route
+    is the faster at every count at or under the gate and the plain route at
+    every count above it.
     -> {rows: (fused ms, plain ms, kernel device ms)}."""
     cpu_gen = torch.Generator().manual_seed(12)
     gen = torch.Generator(device=dev).manual_seed(12)
@@ -820,18 +895,21 @@ def sweep_int8_gate(dev):
             res = plain_res()
             return res, quantize_act(res, act_scale(a3))
 
+        stored = rows > INT8_REQUANT_F32_MAX_ROWS
+
         def fused():
             return int8_mod.matmul_int8_fused(x, wq2, w_scale, bias, a1, relu=True,
-                                              next_absmax=a3, out_dtype=torch.bfloat16)
+                                              next_absmax=a3, out_dtype=torch.bfloat16,
+                                              requant_stored=stored)
 
         (y, yq), (yp, yqp) = fused(), plain()
         torch.cuda.synchronize()
         off_ulp = int(((y.float() - yp.float()).abs() > _bf16_ulp(yp.float())).sum())
         step = (yq.int() - yqp.int()).abs()
-        log(f"  int8 gate sweep rows={rows}: fused vs plain route: y elements beyond 1 bf16 ulp"
-            f" {off_ulp}, yq max step {int(step.max())}, share differing"
-            f" {float((step > 0).float().mean()):.2e}")
-        if off_ulp or int(step.max()) > YQ_MAX_STEP:
+        log(f"  int8 gate sweep rows={rows} ({'stored' if stored else 'f32'} source): fused vs"
+            f" plain route: y elements beyond 1 bf16 ulp {off_ulp}, yq max step"
+            f" {int(step.max())}, share differing {float((step > 0).float().mean()):.2e}")
+        if off_ulp or int(step.max()) > (0 if stored else YQ_MAX_STEP):
             raise AssertionError(f"int8 gate sweep rows={rows}: the routes disagree")
         del y, yq, yp, yqp, step
         iters = max(5, 200 * 4550 // rows)
@@ -1000,28 +1078,44 @@ def check_probs(probs, n, num_classes=70):
         raise AssertionError("probabilities are not finite or do not sum to 1")
 
 
-def compare_paths(eng, its):
-    """Max |dprob| between the kernel path and the plain path of one padded
-    batch on the engine's state (the same generator seed for both); raises
-    beyond PROB_ATOL or on a differing argmax where the margin is wide."""
+def plain_path(eng, batch):
+    """The plain path's logits on the card (the engine's generator seed)."""
+    cfg = dataclasses.replace(eng.cfg, use_pallas_kernels=False)
+    return eng.forward(batch, cfg, torch.Generator(device=eng.device).manual_seed(11))[0]
+
+
+def port_on_cpu(eng, batch):
+    """The port's logits on the CPU on the engine's weights and state (the
+    calibrated int8 trunk's included), where the kernels' wrappers run their
+    plain versions along the kernel path's route."""
+    cpu = torch.device("cpu")
+    return forward(eng.spec, eng.cfg, tree_to(eng.params, cpu), tree_to(eng.state, cpu),
+                   tree_to(batch, cpu), torch.Generator().manual_seed(11))[0]
+
+
+def compare_paths(eng, its, reference=plain_path):
+    """Max |dprob| between the kernel path on the card and ``reference``
+    (``plain_path`` or ``port_on_cpu``) of one padded batch on the engine's
+    state, the same generator seed for both; raises beyond PROB_ATOL or on a
+    differing argmax where the margin is wide."""
     cfg = eng.cfg
-    plain_cfg = dataclasses.replace(cfg, use_pallas_kernels=False)
     batch = eng.make_batch(its)
     with torch.inference_mode():
         lk, _ = eng.forward(batch, cfg, torch.Generator(device=eng.device).manual_seed(11))
-        lp, _ = eng.forward(batch, plain_cfg, torch.Generator(device=eng.device).manual_seed(11))
+        lr = reference(eng, batch)
     n = len(its)
-    lk, lp = lk[:n].float(), lp[:n].float()
-    pdiff = (torch.softmax(lk, -1) - torch.softmax(lp, -1)).abs().max().item()
-    top2 = lp.topk(2, dim=-1).values
+    lk, lr = lk[:n].float().cpu(), lr[:n].float().cpu()
+    pdiff = (torch.softmax(lk, -1) - torch.softmax(lr, -1)).abs().max().item()
+    top2 = lr.topk(2, dim=-1).values
     wide = (top2[:, 0] - top2[:, 1]) > ARGMAX_MARGIN
-    agree = (lk.argmax(-1) == lp.argmax(-1))
+    agree = (lk.argmax(-1) == lr.argmax(-1))
+    what = reference.__name__.replace("_", " ")
     frames = f" T{batch[eng.visual_key].shape[1]}" if eng.visual_key else ""
-    log(f"  {cfg.model} kernel vs plain path, batch {eng.B}{frames}:"
+    log(f"  {cfg.model} kernel path vs {what}, batch {eng.B}{frames}:"
         f" max |dprob| {pdiff:.3e} (bound {PROB_ATOL}), argmax agree"
         f" {int(agree.sum())}/{n} ({int(wide.sum())} rows with margin > {ARGMAX_MARGIN})")
     if pdiff > PROB_ATOL or not bool(agree[wide].all()):
-        raise AssertionError(f"{cfg.model}: the kernel path disagrees with the plain path")
+        raise AssertionError(f"{cfg.model}: the kernel path disagrees with the {what}")
     return pdiff
 
 
@@ -1060,16 +1154,22 @@ def feature_items(feats, cpu_gen, lo, hi, v_max):
     return out
 
 
-def serve_stem_model(dev, cfg, feats, big, seed, tally, label=None):
+def serve_stem_model(dev, cfg, feats, big, seed, tally, label=None, batch1_reference=plain_path,
+                     checkpoint_path=None):
     """One int8-trunk model over cached features: calibrate, then batch ``big``
     at frame buckets 20 and 35 and batch 1 at 35 frames, counted; the kernel
-    path against the plain path; ms/video (under ``label``, by default the
-    model's name). -> (launches, ms, worst |dprob|)."""
+    path against the plain path (batch 1 against ``batch1_reference``);
+    ms/video (under ``label``, by default the
+    model's name). The engines' weights come from ``checkpoint_path``, else
+    from seed 0. -> (launches, ms, worst |dprob|)."""
     label = label or cfg.model
     t0 = time.perf_counter()
-    eng_big = InferenceEngine(cfg, seed=0, max_batch=big, device=dev)
-    eng1 = InferenceEngine(cfg, seed=0, max_batch=1, device=dev)
-    log(f"  {label} weights: 2 engines from seed 0 in {time.perf_counter() - t0:.1f} s")
+    eng_big = InferenceEngine(cfg, checkpoint_path=checkpoint_path, seed=0, max_batch=big,
+                              device=dev)
+    eng1 = InferenceEngine(cfg, checkpoint_path=checkpoint_path, seed=0, max_batch=1,
+                           device=dev)
+    log(f"  {label} weights: 2 engines from {checkpoint_path or 'seed 0'} in"
+        f" {time.perf_counter() - t0:.1f} s")
     cpu_gen = torch.Generator().manual_seed(seed)
     cal = feature_items(feats, cpu_gen, 0, big, 35)
     b20 = feature_items(feats, cpu_gen, 32, 32 + big, 20)
@@ -1098,7 +1198,8 @@ def serve_stem_model(dev, cfg, feats, big, seed, tally, label=None):
         f" {launches}")
     for probs, (_, its) in zip(outs, runs):
         check_probs(probs, len(its))
-    worst = max(compare_paths(eng, its) for eng, its in runs)
+    worst = max(compare_paths(eng, its) for eng, its in runs[:2])
+    worst = max(worst, compare_paths(eng1, one, batch1_reference))
     ms = {f"{label} batch {big} T35": time_paths(f"{label} batch {big} T35", eng_big, b35, 3,
                                                  tally),
           f"{label} batch 1 T35": time_paths(f"{label} batch 1 T35", eng1, one, 10, tally)}
@@ -1294,11 +1395,7 @@ FILM_GP_CFG = ModelConfig(model="film_gp_pt", num_res_blocks=4, num_res_block_ch
                           num_input_channels=512, compute_dtype="bfloat16", max_num_frames=35,
                           max_q_len=56, vocab_size=134, num_classes=70,
                           use_pallas_kernels=True, use_int8_trunk=True)
-# The BoW form serves the bf16 trunk: its FiLM values are unbounded sums over
-# 56 tokens, which at random weights make the attention near one-hot, so the
-# int8 trunk's two requantization routes (the fused kernel's from f32, the
-# plain route's from bf16; ROADMAP C4) pick other frames on rows of no margin.
-FILM_ATTN_BOW_CFG = dataclasses.replace(FILM_ATTN_CFG, q_encoder="bow", use_int8_trunk=False)
+FILM_ATTN_BOW_CFG = dataclasses.replace(FILM_ATTN_CFG, q_encoder="bow")
 
 
 def serve_film_gp(dev, feats, tally):
@@ -1314,11 +1411,21 @@ def serve_film_gp(dev, feats, tally):
 
 
 def serve_film_attn_bow(dev, feats, tally):
-    """film_attn_pt with --q_encoder bow over cached features, bf16 trunk:
-    the attention tail once a forward, the re-encode never."""
+    """film_attn_pt with --q_encoder bow over cached features, int8 trunk: the
+    attention tail once a forward, the fused int8 1x1 kernel once a block,
+    the re-encode never. Its FiLM values are unbounded sums over 56 tokens,
+    which at random weights make the attention near one-hot, so the int8
+    codes decide frames on rows of no margin: above INT8_REQUANT_F32_MAX_ROWS
+    the kernel path requantizes from the plain path's source and is held to
+    it; at batch 1 (4,550 rows) the two routes requantize from other sources,
+    as in the JAX package, and the card's kernel path is held to the port on
+    the CPU, which takes its route."""
     launches, ms, worst = serve_stem_model(dev, FILM_ATTN_BOW_CFG, feats, 32, 32, tally,
-                                           label="film_attn_pt (bow)")
-    expect_launches("film_attn_pt (bow)", launches, {"attn_tail": 3})
+                                           label="film_attn_pt (bow)",
+                                           batch1_reference=port_on_cpu)
+    expect_launches("film_attn_pt (bow)", launches, {
+        "attn_tail": 3,
+        "int8_matmul_fused": fused_1x1_launches(5, 32 * 20 * 130, 32 * 35 * 130, 35 * 130)})
     return launches, ms, worst
 
 
@@ -2346,6 +2453,104 @@ def harness(card, tmp=None, data=None):
     return total
 
 
+# The FiLM trunk's 1x1 convs, which reference checkpoints do not hold
+INTERCHANGE_MISSING = [f"trunk/conv1x1_{k}" for k in range(FILM_ATTN_CFG.num_res_blocks)]
+
+
+def _same_leaves(label, got, want):
+    """Raises unless every leaf of ``want`` but the conv1x1 ones is in
+    ``got`` with the same bits."""
+    got = {k: t.cpu() for k, t in tree_items(got)}
+    for k, t in tree_items(want):
+        if "conv1x1" not in k and not torch.equal(got[k], t.cpu()):
+            raise AssertionError(f"{label}: leaf {k} differs")
+
+
+def interchange(dev, card, tmp=None, data=None):
+    """The reference checkpoint interchange at film_attn_pt's eval.sh preset
+    (5 x 1024, int8 trunk, kernels on), on the synthetic dataset ``data``
+    (HARNESS_DATA; written here when not given): the seeded weights written
+    as a reference ``.pt`` (``save_reference_checkpoint``); engines started
+    from it on the card (every imported leaf bit-equal to the exported one,
+    the five conv1x1 leaves named as drawn) serve batch 32 at buckets 20 and
+    35 and batch 1 from seeded bf16 features, the three FiLM kernels
+    counted, held to the plain path; one harness epoch (q_and_v_eval)
+    resumed from the ``.pt``: its epoch 1, Adam fresh (as many steps as the
+    epoch has batches); ``cli/export_checkpoint`` from that epoch's npz, read
+    back bit-equal on every leaf but conv1x1. -> launches."""
+    if data is None:
+        with synthetic_dataset() as (tmp, data):
+            return interchange(dev, card, tmp, data)
+    t0 = time.perf_counter()
+    cfg = FILM_ATTN_CFG
+    params, state = get_model(cfg.model).init(torch.Generator().manual_seed(0), cfg,
+                                              torch.device("cpu"))
+    pt = os.path.join(tmp, "reference.pt")
+    save_reference_checkpoint(pt, cfg.model, params, state, cfg, epoch=0)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        eng = InferenceEngine(cfg, checkpoint_path=pt, seed=0, max_batch=1, device=dev)
+    if str(INTERCHANGE_MISSING) not in buf.getvalue():
+        raise AssertionError(f"the engine's import named {buf.getvalue()!r}")
+    _same_leaves("the engine from the .pt", eng.params, params)
+    _same_leaves("the engine from the .pt (state)", eng.state, state)
+    del eng
+    log(f"  wrote {pt} ({os.path.getsize(pt) / 2 ** 20:.1f} MiB) and started an engine from it"
+        f" on {card}: every leaf as exported, {INTERCHANGE_MISSING} drawn from seed 0")
+
+    gen = torch.Generator(device=dev).manual_seed(40)
+    feats = torch.relu(torch.randn((32 * 3 + 1, 35, 10, 13, 512), generator=gen, device=dev)
+                       ).to(torch.bfloat16)
+    label = "film_attn_pt from a reference .pt"
+    tally = dict.fromkeys(KERNEL_NAMES, 0.0)
+    launches, ms, worst = serve_stem_model(dev, cfg, feats, 32, 41, tally, label=label,
+                                           checkpoint_path=pt)
+    expect_launches(label, launches, dict(
+        FILM_ATTN_KERNELS, int8_matmul_fused=fused_1x1_launches(5, 32 * 20 * 130,
+                                                                 32 * 35 * 130, 35 * 130)))
+    log(f"  {label}: kernel path (plain path) ms/video "
+        + ", ".join(f"{k} {a:.4f} ({b:.4f})" for k, (a, b) in ms.items())
+        + f"; worst |dprob| {worst:.3e}")
+    del feats
+    torch.cuda.empty_cache()
+
+    resumed = os.path.join(tmp, "resume_reference.pt")
+    shutil.copy(pt, resumed)
+    metrics = os.path.join(tmp, "metrics_interchange.jsonl")
+    entry_launches, _ = run_entry(
+        "q_and_v_eval film_attn_pt, eval.sh preset, resumed from a reference .pt",
+        q_and_v_eval.main, FILM_PRESET + ["--data_dir", data, "--checkpoint_path", resumed,
+                                          "--stats_after_every", "1"],
+        {"vgg_block1": 1, "film_reencode": 1, "attn_tail": 1}, metrics)
+    launches = {k: launches[k] + entry_launches[k] for k in launches}
+    with open(metrics) as f:
+        events = [json.loads(line) for line in f]
+    steps = max(e["iteration"] for e in events if e["event"] == "train_progress")
+    epochs = {e["epoch"] for e in events if e["event"] == "train_epoch"}
+    e1 = epoch_path(resumed, 1)
+    flat, meta = read_npz(e1)
+    count = int(flat[OPT_INNER_COUNT])
+    log(f"  resumed from the .pt: trained epoch {sorted(epochs)}, {e1} holds epoch"
+        f" {meta['epoch']} and Adam's count {count} after the epoch's {steps} steps")
+    if epochs != {1} or meta["epoch"] != 1 or count != steps:
+        raise AssertionError("the harness did not resume at epoch 1 with a fresh Adam")
+
+    out = os.path.join(tmp, "exported.pt")
+    export_cli.main(FILM_PRESET + ["--data_dir", data, "--checkpoint_path", e1, "--out", out])
+    obj = torch.load(out, map_location="cpu", weights_only=False)
+    got_p, got_s, missing = import_model_checkpoint(cfg.model, obj["state_dict"], cfg)
+    want_p, want_s = params_from_jax(flat)
+    _same_leaves("cli/export_checkpoint's .pt", got_p, want_p)
+    _same_leaves("cli/export_checkpoint's .pt (state)", got_s, want_s)
+    if (obj["epoch"], obj["model"], missing) != (1, cfg.model, INTERCHANGE_MISSING):
+        raise AssertionError(f"cli/export_checkpoint wrote {obj['epoch']}, {obj['model']},"
+                             f" {missing}")
+    log(f"  cli/export_checkpoint {e1} -> {out}: {len(obj['state_dict'])} tensors, read back"
+        f" bit-equal but for conv1x1; interchange phase on {card} in"
+        f" {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 # The daemon phase: film_attn_pt at the eval.sh preset served over a feature
 # cache (cli/serve.py), the int8 trunk and the kernels on, auto frame buckets.
 # The clients are a process of their own (serve/loadgen.py), so that their
@@ -3044,6 +3249,9 @@ def main():
     with synthetic_dataset() as (tmp, data):
         log("phase harness")
         for name, n in harness(card, tmp, data).items():
+            launches[name] += n
+        log("phase interchange")
+        for name, n in interchange(dev, card, tmp, data).items():
             launches[name] += n
         log("phase daemon")
         for name, n in daemon(card, tmp, data, os.path.join(tmp, "e0_film.npz")).items():

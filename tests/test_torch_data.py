@@ -192,7 +192,7 @@ def test_vnr_feature_payloads_read_bit_for_bit(payload, ml_dtype, torch_dtype, t
 def test_vnr_refuses_row_slices(packed, tmp_path):
     path = str(tmp_path / "all.vnr")
     vnr.pack_dataset(packed, path, compress="zlib")
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP: multi-GPU"):
         vnr.VNRBatchLoader(path, 2, row_slice=(0, 1))
 
 

@@ -253,9 +253,9 @@ def test_train_obj_detector_matches_jax(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv, match", [
-    (["--synthetic", "16"], "A10"),
+    (["--synthetic", "16"], "ROADMAP: the JAX-free tools"),
     ([], "need --data"),
-])
+], ids=lambda v: "A10" if v == "ROADMAP: the JAX-free tools" else None)   # ids as item A10
 def test_train_obj_detector_refusals(argv, match):
     with pytest.raises(SystemExit, match=match):
         tod.main(argv + ["--device", "cpu"])

@@ -12,6 +12,8 @@ It keeps the JAX harness's behaviour:
   validation;
 - epoch checkpoints (``e{N}_``) in the JAX package's format, with Adam's
   state and the train F1 in the metadata, written in the background;
+  ``--checkpoint_path`` also reads a reference ``torch.save`` checkpoint
+  (``utils/checkpoint.py load_any_checkpoint``; Adam then starts afresh);
 - MAC's elementwise gradient clamp and its epoch-1 lr/10 dip;
 - the same JSONL events (``utils/logging.py``);
 - ``--feature_cache``: the frozen stem's features extracted once into
@@ -119,11 +121,11 @@ def add_common_args(parser: argparse.ArgumentParser):
                         help="draw the frame subsampling anew at val/test time, as the "
                              "reference does (nondeterministic metrics)")
     parser.add_argument("--mesh_devices", type=int, default=0,
-                        help="refused unless 0: multi-GPU is not ported yet (ROADMAP A8)")
+                        help="refused unless 0: multi-GPU is not ported yet (ROADMAP: multi-GPU)")
     parser.add_argument("--model_parallel", type=int, default=1,
-                        help="refused unless 1 (ROADMAP A8)")
+                        help="refused unless 1 (ROADMAP: multi-GPU)")
     parser.add_argument("--distributed", type=_true, default=False,
-                        help="refused unless false (ROADMAP A8)")
+                        help="refused unless false (ROADMAP: multi-GPU)")
     parser.add_argument("--coordinator_address", type=str, default=None)
     parser.add_argument("--num_processes", type=int, default=None)
     parser.add_argument("--process_id", type=int, default=None)
@@ -194,14 +196,14 @@ def build_q_and_v_parser():
     return parser
 
 
-# (flag, its default, the ROADMAP item that ports it)
+# (flag, its default, the ROADMAP item that ports it, by its title)
 _REFUSED = (
-    ("mesh_devices", 0, "A8 (multi-GPU)"),
-    ("model_parallel", 1, "A8 (multi-GPU)"),
-    ("distributed", False, "A8 (multi-GPU)"),
-    ("coordinator_address", None, "A8 (multi-GPU)"),
-    ("num_processes", None, "A8 (multi-GPU)"),
-    ("process_id", None, "A8 (multi-GPU)"),
+    ("mesh_devices", 0, "multi-GPU"),
+    ("model_parallel", 1, "multi-GPU"),
+    ("distributed", False, "multi-GPU"),
+    ("coordinator_address", None, "multi-GPU"),
+    ("num_processes", None, "multi-GPU"),
+    ("process_id", None, "multi-GPU"),
 )
 
 
@@ -214,7 +216,7 @@ def refuse_unported(args, model_name):
     for flag, default, item in _REFUSED:
         value = getattr(args, flag, default)
         if value != default:
-            raise SystemExit(f"--{flag} {value}: not ported yet (ROADMAP {item}); "
+            raise SystemExit(f"--{flag} {value}: not ported yet (ROADMAP: {item}); "
                              f"leave it at its default, {default}")
     if getattr(args, "jax_cache_dir", None):
         raise SystemExit("--jax_cache_dir: the port compiles no XLA programs; drop the flag")
@@ -546,8 +548,8 @@ def run_training(args, model_name, *, q_only=False, v_only=False, clip_value=Non
     if args.checkpoint_path and os.path.exists(args.checkpoint_path):
         print("=> Restoring from checkpoint path %s" % args.checkpoint_path)
         # the learning rate too: a restored optimizer keeps the checkpoint's
-        meta = ckpt.load_checkpoint(args.checkpoint_path, params=params, state=state,
-                                    optimizer=optimizer)
+        meta = ckpt.load_any_checkpoint(args.checkpoint_path, model_name=model_name, cfg=h.cfg,
+                                        params=params, state=state, optimizer=optimizer)
         start_epoch = int(meta.get("epoch", -1)) + 1
         print("==> Restored checkpoint %s (epoch %d)" % (args.checkpoint_path, start_epoch))
     elif args.checkpoint_path:
@@ -620,7 +622,8 @@ def run_test(args, model_name, *, q_only=False, v_only=False):
     params, state = h.init_model()
     if not args.checkpoint_path or not os.path.exists(args.checkpoint_path):
         raise SystemExit("=> Checkpoint required for testing (--checkpoint_path)")
-    meta = ckpt.load_checkpoint(args.checkpoint_path, params=params, state=state)
+    meta = ckpt.load_any_checkpoint(args.checkpoint_path, model_name=model_name, cfg=h.cfg,
+                                    params=params, state=state)
     if "val_acc" in meta:
         print("=> Restored checkpoint with val acc %s" % meta["val_acc"])
     if h.needs_stem and h.stem_fn is None:   # int8: calibrate on one batch

@@ -29,8 +29,8 @@ The paths and bodies are ``serve/http.py``'s. SIGTERM or SIGINT stops
 accepting connections, answers every accepted request and exits.
 ``--int8_stem true`` serves a stem model from video through the int8 stem,
 calibrated at start-up on one stored video (``--int8_stem_calibration_video``,
-else the alphabetically first under ``videos/``). Mesh serving (ROADMAP A8)
-is not ported: its flags exit naming the item.
+else the alphabetically first under ``videos/``). Mesh serving
+(ROADMAP: multi-GPU) is not ported: its flags exit naming the item.
 """
 
 from __future__ import annotations

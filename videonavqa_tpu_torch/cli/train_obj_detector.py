@@ -18,7 +18,7 @@ reference's keys.
 ``np.random.RandomState(epoch).permutation(N)``, dropping the last partial
 batch, and prints its mean loss and accuracy. ``--synthetic N`` (frames
 rendered from synthetic houses) needs the datagen renderer, which is not
-ported yet (ROADMAP A10): it exits. Runs on the card unless ``--device cpu``.
+ported yet (ROADMAP: the JAX-free tools): it exits. Runs on the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -43,7 +43,8 @@ def build_parser():
     parser = argparse.ArgumentParser()
     parser.add_argument("--data", type=str, help=".npz with 'images' u8 and 'targets'")
     parser.add_argument("--synthetic", type=int, default=0,
-                        help="refused: rendering labeled frames is not ported yet (ROADMAP A10)")
+                        help="refused: rendering labeled frames is not ported yet "
+                             "(ROADMAP: the JAX-free tools)")
     parser.add_argument("--num_filters", type=int, default=512)
     parser.add_argument("--tail_hidden_dim", type=int, default=1024)
     parser.add_argument("--tail_dropout_p", type=float, default=0.5)
@@ -91,7 +92,7 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.synthetic:
         raise SystemExit("--synthetic: rendering labeled frames from synthetic houses is not "
-                         "ported yet (ROADMAP A10); pass --data <npz>")
+                         "ported yet (ROADMAP: the JAX-free tools); pass --data <npz>")
     if not args.data:
         raise SystemExit("need --data or --synthetic N")
     device = resolve_device(args.device)

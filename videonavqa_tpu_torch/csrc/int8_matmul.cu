@@ -6,6 +6,9 @@
 //   acc = xq @ wq^T                                           (int32, exact)
 //   y   = acc * comb + bias, then ReLU if asked              (f32, stored bf16/f32)
 //   yq  = clip(round_half_even(y / nx), -127, 127)           (int8, optional)
+// where yq's y is either the f32 value (the Pallas kernel's source) or, with
+// `stored`, the value as stored at bf16 (the source of the JAX package's
+// plain route, which quantizes the stored conv output for the 3x3 conv).
 // comb = sx * w_scale is formed in f32 by the caller. The divisions are
 // correctly rounded (a reciprocal multiply plus one FMA correction, below),
 // and the epilogue rounds after the product and after the sum (__fmul_rn,
@@ -208,10 +211,11 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
 // dequantized f32 values' bits), rows past M not stored, with yq where asked.
 // An accumulator element 4 * nb + 2 * half + j sits at row 16 * (t / 32) +
 // (t % 32) / 4 + 8 * half, column 8 * nb + 2 * (t % 4) + j.
-// f32 y (the tight check): straight from the registers.
+// f32 y (the tight check): straight from the registers; the stored value is
+// the f32 one, so `stored` changes nothing.
 __device__ __forceinline__ void store_item(float* y, int8_t* yq, const int (&acc)[64], uint8_t*,
                                            int m0, int n0, int M, int N, float nx, float rnx,
-                                           int, int t) {
+                                           int, int t, int) {
 #pragma unroll
   for (int nb = 0; nb < BN / 8; ++nb)
 #pragma unroll
@@ -233,9 +237,10 @@ __device__ __forceinline__ void store_item(float* y, int8_t* yq, const int (&acc
 // 1 + w): y as [64][256 B], yq as [64][128 B], the 16-byte chunk c of row r
 // at c ^ (r % 8), so that the register writes and the row reads both miss
 // bank conflicts and every global store is a whole 16-byte chunk of a row.
+// With `stored`, yq quantizes each value as rounded to bf16 (what y holds).
 __device__ __forceinline__ void store_item(__nv_bfloat16* y, int8_t* yq, const int (&acc)[64],
                                            uint8_t* st, int m0, int n0, int M, int N, float nx,
-                                           float rnx, int w, int t) {
+                                           float rnx, int w, int t, int stored) {
 #pragma unroll
   for (int nb = 0; nb < BN / 8; ++nb)
 #pragma unroll
@@ -259,10 +264,16 @@ __device__ __forceinline__ void store_item(__nv_bfloat16* y, int8_t* yq, const i
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int r = (t >> 5) * 16 + ((t & 31) >> 2) + 8 * half;
+      float v0 = __int_as_float(acc[4 * nb + 2 * half]);
+      float v1 = __int_as_float(acc[4 * nb + 2 * half + 1]);
+      if (stored) {
+        const float2 s = __bfloat1622float2(__floats2bfloat162_rn(v0, v1));
+        v0 = s.x;
+        v1 = s.y;
+      }
       *reinterpret_cast<uint16_t*>(st + r * 128 + (((nb >> 1) ^ (r & 7)) << 4) + (nb & 1) * 8
                                    + (t & 3) * 2) =
-          (uint16_t)(quant(__int_as_float(acc[4 * nb + 2 * half]), nx, rnx)
-                     | quant(__int_as_float(acc[4 * nb + 2 * half + 1]), nx, rnx) << 8);
+          (uint16_t)(quant(v0, nx, rnx) | quant(v1, nx, rnx) << 8);
     }
   named_sync(1 + w, 128);
 #pragma unroll
@@ -321,7 +332,7 @@ int8_matmul_kernel(const __grid_constant__ CUtensorMap wmap,  // wq [N, K] int8,
                    const float* __restrict__ nx_p,   // scalar, or null
                    Tout* __restrict__ y,             // [M, N]
                    int8_t* __restrict__ yq,          // [M, N], or null
-                   int M, int N, int K, int relu) {
+                   int M, int N, int K, int relu, int stored) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
@@ -454,7 +465,7 @@ int8_matmul_kernel(const __grid_constant__ CUtensorMap wmap,  // wq [N, K] int8,
         acc[4 * nb + 2 * half + 1] = __float_as_int(v1);
       }
     }
-    store_item(y, yq, acc, st, m0, n0, M, N, nx, rnx, w, t);
+    store_item(y, yq, acc, st, m0, n0, M, N, nx, rnx, w, t, stored);
   }
 }
 
@@ -485,7 +496,7 @@ EncodeTiled encoder() {
 template <typename Tin, typename Tout>
 int launch(const CUtensorMap& wmap, const void* x, const void* comb, const void* bias,
            const void* sx, const void* nx, void* y, void* yq, int M, int N, int K, int relu,
-           cudaStream_t stream) {
+           int stored, cudaStream_t stream) {
   const auto kernel = int8_matmul_kernel<Tin, Tout>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem_bytes(K));
@@ -498,7 +509,7 @@ int launch(const CUtensorMap& wmap, const void* x, const void* comb, const void*
   const int grid = (int)(items < sms ? items : sms);
   kernel<<<grid, THREADS, smem_bytes(K), stream>>>(wmap, (const Tin*)x, (const float*)comb,
                                           (const float*)bias, (const float*)sx, (const float*)nx,
-                                          (Tout*)y, (int8_t*)yq, M, N, K, relu);
+                                          (Tout*)y, (int8_t*)yq, M, N, K, relu, stored);
   return (int)cudaGetLastError();
 }
 
@@ -506,13 +517,14 @@ int launch(const CUtensorMap& wmap, const void* x, const void* comb, const void*
 
 // x [M, K] (bf16, or f32 when x_f32), wq [N, K] int8, comb and bias [N] f32,
 // sx (and nx when yq is not null) f32 scalars on the device -> y [M, N] (bf16,
-// or f32 when y_f32) and optionally yq [M, N] int8. Needs N % 128 == 0,
+// or f32 when y_f32) and optionally yq [M, N] int8, quantized from the f32
+// value or, with yq_stored, from the value y stores. Needs N % 128 == 0,
 // K % 128 == 0, K <= 1024 and 16-byte aligned x and wq. Returns the CUDA
 // error of the launch (0 on success).
 extern "C" int int8_matmul_fused(const void* x, int x_f32, const void* wq, const void* comb,
                                  const void* bias, const void* sx, const void* nx, void* y,
                                  int y_f32, void* yq, int M, int N, int K, int relu,
-                                 void* stream) {
+                                 int yq_stored, void* stream) {
   if (M < 1 || N < BN || N % BN != 0 || K < BK || K % BK != 0 || K > MAX_K)
     return (int)cudaErrorInvalidValue;
   const EncodeTiled encode = encoder();
@@ -528,8 +540,13 @@ extern "C" int int8_matmul_fused(const void* x, int x_f32, const void* wq, const
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (x_f32)
-    return y_f32 ? launch<float, float>(wmap, x, comb, bias, sx, nx, y, yq, M, N, K, relu, s)
-                 : launch<float, __nv_bfloat16>(wmap, x, comb, bias, sx, nx, y, yq, M, N, K, relu, s);
-  return y_f32 ? launch<__nv_bfloat16, float>(wmap, x, comb, bias, sx, nx, y, yq, M, N, K, relu, s)
-               : launch<__nv_bfloat16, __nv_bfloat16>(wmap, x, comb, bias, sx, nx, y, yq, M, N, K, relu, s);
+    return y_f32
+        ? launch<float, float>(wmap, x, comb, bias, sx, nx, y, yq, M, N, K, relu, yq_stored, s)
+        : launch<float, __nv_bfloat16>(wmap, x, comb, bias, sx, nx, y, yq, M, N, K, relu,
+                                       yq_stored, s);
+  return y_f32
+      ? launch<__nv_bfloat16, float>(wmap, x, comb, bias, sx, nx, y, yq, M, N, K, relu,
+                                     yq_stored, s)
+      : launch<__nv_bfloat16, __nv_bfloat16>(wmap, x, comb, bias, sx, nx, y, yq, M, N, K,
+                                             relu, yq_stored, s);
 }

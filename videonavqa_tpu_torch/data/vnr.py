@@ -273,7 +273,7 @@ class VNRBatchLoader:
         if row_slice is not None:
             raise NotImplementedError(
                 "row_slice (each host decoding its rows of a batch) is multi-GPU "
-                "feeding, not ported yet (ROADMAP A8)")
+                "feeding, not ported yet (ROADMAP: multi-GPU)")
         self._lib = _load_lib()
         self._handle = self._lib.vnr_open(os.fsencode(path))
         if not self._handle:

@@ -16,7 +16,9 @@ records each conv's input absmax (1.25x headroom) and pre-quantized int8
 weights into the state; and, under ``use_int8_trunk``, int8 in one of three
 forms, as the state allows: calibrated (absmax and int8 weights from the
 state; the 1x1 convs take the fused int8 kernel when the folded row count is
-at or under ``INT8_FUSED_MAX_ROWS``), static (an absmax but no int8 weights
+at or under ``INT8_FUSED_MAX_ROWS``, which requantizes the 3x3 conv's input
+from the source the JAX package's route at that count uses,
+``INT8_REQUANT_F32_MAX_ROWS``), static (an absmax but no int8 weights
 in the state: the weights quantize each call) and dynamic (no absmax: each
 conv quantizes its input by this batch's absmax, as the harness's eval step
 runs ``--int8_trunk``).
@@ -59,6 +61,14 @@ from videonavqa_tpu_torch.utils.device import tree_to
 # largest count swept; above it the route is unmeasured. (The JAX package's
 # 9,100 was measured on a TPU v5e.)
 INT8_FUSED_MAX_ROWS = 1164800
+
+# A parity rule taken from the JAX package, not a speed gate: at or under its
+# INT8_FUSED_MAX_ROWS (9,100, videonavqa_tpu/models/film.py) the JAX package
+# runs the 1x1 conv through its fused kernel, which requantizes the 3x3
+# conv's input from the f32 result; above it, through its plain route, where
+# the 3x3 conv quantizes the result as stored at the compute dtype. The fused
+# kernel here takes either source, so every row count gets JAX's int8 codes.
+INT8_REQUANT_F32_MAX_ROWS = 9100
 
 def init_film_trunk(gen, cfg):
     """conv_init + bn_init + N x (conv3x3, conv1x1)."""
@@ -110,12 +120,14 @@ def _trunk_convs(params, state, cfg, rows, new_state, device, train=False):
     if device.type != "cpu":
         ch = cfg.num_res_block_channels
         check_shape(rows, ch, ch)
+    requant_stored = rows > INT8_REQUANT_F32_MAX_ROWS
 
     def block_convs(k, x, p1x1, p3x3):
         n1, n3 = f"conv1x1_{k}", f"conv3x3_{k}"
         res, resq = matmul_int8_fused(
             x, wqs[n1]["wq"][:, :, 0, 0], wqs[n1]["scale"], p1x1.get("bias"),
-            scales[n1], relu=True, next_absmax=scales[n3], out_dtype=dtype)
+            scales[n1], relu=True, next_absmax=scales[n3], out_dtype=dtype,
+            requant_stored=requant_stored)
         y = conv2d_int8_preq_act(wqs[n3]["wq"], wqs[n3]["scale"], p3x3.get("bias"),
                                  resq, scales[n3], out_dtype=dtype)
         return res, y

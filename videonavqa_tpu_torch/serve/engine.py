@@ -110,9 +110,10 @@ def stem_calibration_batch(args, paths, rng):
 class InferenceEngine:
     """Loads the model once; serves padded fixed-shape micro-batches.
 
-    Weights come from a JAX-package checkpoint (``checkpoint_path``, read
-    into the leaves of the model's init: each must be in the file with its
-    shape) or from the reference init drawn from
+    Weights come from a checkpoint (``checkpoint_path``: the JAX package's
+    npz or a reference ``torch.save`` file, read into the leaves of the
+    model's init: each must be in the file with its shape) or from the
+    reference init drawn from
     ``torch.Generator().manual_seed(seed)``. ``device`` defaults to the card;
     pass ``"cpu"`` to run the plain path. A model that draws at eval draws
     each batch from a generator seeded ``seed``, so a repeated request gets
@@ -286,7 +287,8 @@ class InferenceEngine:
                 raise ValueError(f"checkpoint {path!r} does not exist")
             params = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype), self._template[0])
             state = tree_map(torch.clone, self._template[1])   # read in place
-            meta = ckpt.load_checkpoint(path, params=params, state=state)
+            meta = ckpt.load_any_checkpoint(path, model_name=self.cfg.model, cfg=self.cfg,
+                                            params=params, state=state)
         elif init is not None:
             params, state = init
         else:

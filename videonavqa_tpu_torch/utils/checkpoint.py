@@ -19,6 +19,10 @@ transposes; the hyperparameters (``learning_rate``, ``b1``, ``b2``, ``eps``)
 are the param group's ``lr``, ``betas`` and ``eps``. Restoring sets the
 learning rate from the checkpoint, as a restored optax state carries its own.
 
+``load_any_checkpoint`` also takes a reference ``torch.save`` checkpoint
+(``utils/zoo_import.py``), as the JAX package's does at every
+``--checkpoint_path``; ``utils/zoo_export.py`` writes one.
+
 ``epoch_path`` names an epoch's file (``e{N}_`` before the basename);
 ``save_checkpoint_async`` snapshots to the host at once and writes on a
 background thread; ``wait_for_pending_saves`` waits for those writes.
@@ -39,6 +43,7 @@ import torch
 
 from videonavqa_tpu_torch.train.step import tree_items
 from videonavqa_tpu_torch.utils.device import tree_to
+from videonavqa_tpu_torch.utils.zoo_import import import_model_checkpoint, verify_shapes
 
 # optax's inject_hyperparams(adam) state, as the JAX package's flatten_tree
 # names its leaves
@@ -264,17 +269,13 @@ def _is_torch_save(path: str) -> bool:
 
 
 def load_checkpoint(path, *, params, state=None, optimizer=None):
-    """Copy a checkpoint into the live tensors, in place -> its meta dict.
+    """Copy a checkpoint in the JAX package's format into the live tensors,
+    in place -> its meta dict.
 
     ``params`` (and ``state``) are the templates, as in the JAX package: each
     leaf must be in the file with the same shape; ``state`` is left as it is
     where the file has none, and so is ``optimizer`` where it has no
-    ``opt/`` leaves. A reference checkpoint written by ``torch.save`` is
-    refused: its importer is not ported yet (ROADMAP A9)."""
-    if _is_torch_save(path):
-        raise NotImplementedError(
-            f"{path} is a torch.save checkpoint of the reference; importing those "
-            "(the JAX package's utils/zoo_import.py) is not ported yet (ROADMAP A9)")
+    ``opt/`` leaves."""
     flat, meta = read_npz(path)
     with torch.no_grad():
         for prefix, tree in (("params/", params), ("state/", state)):
@@ -286,6 +287,45 @@ def load_checkpoint(path, *, params, state=None, optimizer=None):
                 t.copy_(_leaf(flat, prefix + k, t))
     if optimizer is not None and any(k.startswith("opt/") for k in flat):
         adam_from_flat(optimizer, params, flat)
+    return meta
+
+
+def load_any_checkpoint(path, *, model_name, cfg, params, state=None, optimizer=None):
+    """``load_checkpoint`` that also takes the reference's ``torch.save``
+    checkpoints (``{'epoch', 'state_dict', 'optimizer', ...}``, or a bare
+    state_dict), so ``--checkpoint_path`` can point at a reference ``.pt``
+    for eval, test, serving and resume -> the meta dict (``epoch`` where the
+    file has one).
+
+    A reference file goes through ``zoo_import.import_model_checkpoint``:
+    its leaves must have the templates' paths and shapes, and are copied into
+    them in place; the leaves reference files lack are drawn from seed 0 and
+    named in a printed line. Its optimizer moments are not imported:
+    ``optimizer`` is left as it is, so a resumed run starts Adam afresh at
+    the epoch after the file's, as in the JAX package."""
+    if not _is_torch_save(path):
+        return load_checkpoint(path, params=params, state=state, optimizer=optimizer)
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    sd = obj["state_dict"] if isinstance(obj, dict) and "state_dict" in obj else obj
+    got_params, got_state, missing = import_model_checkpoint(model_name, sd, cfg)
+    live = [(params, got_params)]
+    if state is not None:
+        state = {k: v for k, v in state.items() if k not in UNSTORED_STATE}
+        live.append((state, got_state))
+    verify_shapes(model_name, got_params, got_state,
+                  (params, got_state if state is None else state))
+    with torch.no_grad():
+        for tree, got in live:
+            got = dict(tree_items(got))
+            for k, t in tree_items(tree):
+                t.copy_(got[k].to(device=t.device, dtype=t.dtype))
+    if missing:
+        print(f"=> Imported reference torch checkpoint {path}; "
+              f"{len(missing)} leaves absent from reference state_dicts "
+              f"re-initialized seeded (reference quirk): {missing}")
+    meta = {}
+    if isinstance(obj, dict) and "epoch" in obj:
+        meta["epoch"] = int(obj["epoch"])
     return meta
 
 
