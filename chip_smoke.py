@@ -197,7 +197,26 @@ kernel's plain version):
              2 epochs of 3 steps: vgg_block1 once a step, the loss finite
              and falling); MAC with both write variants at a small config,
              served with the kernels (lstm 3 a forward) against the CPU and
-             3 train steps card vs CPU (TRAIN_* bounds).
+             3 train steps card vs CPU (TRAIN_* bounds);
+10. datagen — the dataset generator: cli/generate_dataset.py (10 houses of 8
+             trajectories, seed 0, 4 spawned workers, npy videos) run in a
+             process of its own, as a user runs it; labels in [0, 70), the
+             8 / 1 / 1 house split's parts non-empty, every video uint8
+             [T, 160, 208, 3]; cli/dataset_stats.py over it, its totals
+             against labels.json and split.json; examples/s printed; one
+             house generated again in this process, its wall time split
+             into question generation (the attempts that timed out apart),
+             the observation passes and the videos' rendering. Then
+             q_and_v_eval for film_attn_pt at FILM_PRESET's widths, batch 8
+             (the harness's default: the val house holds at most 8
+             examples), one epoch from the generated raw video (vgg_block1
+             once a train step and once a val batch, film_reencode and
+             attn_tail once a val batch), q_and_v_test from its e0_
+             checkpoint (all three once a test batch) and results_analysis
+             over the dumps; cli/train_obj_detector.py --synthetic 96 at
+             full width (as phase 9's --data run: vgg_block1 once a step,
+             the loss finite and falling), its render time, frames/s and
+             positive rate printed.
 
 Run one kernel's check alone (it builds only that source), e.g.
 ``python3 -c "import torch, chip_smoke as cs; cs.check_vgg_block1(torch.device('cuda'))"``.
@@ -229,6 +248,8 @@ import torch
 import torch.nn.functional as F
 
 from videonavqa_tpu_torch.cli import common as harness_mod
+from videonavqa_tpu_torch.cli import dataset_stats as stats_cli
+from videonavqa_tpu_torch.cli import generate_dataset as generate_cli
 from videonavqa_tpu_torch.cli import export_checkpoint as export_cli
 from videonavqa_tpu_torch.cli import extract_features as extract_mod
 from videonavqa_tpu_torch.cli import predict as predict_mod
@@ -240,6 +261,8 @@ from videonavqa_tpu_torch.cli.common import PRESET_L_RATE, TRAIN_STEP_OPTIONS
 from videonavqa_tpu_torch.data.pipeline import DataPaths, load_json
 from videonavqa_tpu_torch.data.synthetic import generate_synthetic_dataset
 from videonavqa_tpu_torch.data.vnr import VNRBatchLoader
+from videonavqa_tpu_torch.datagen import generator as generator_mod
+from videonavqa_tpu_torch.datagen import trajectory as trajectory_mod
 from videonavqa_tpu_torch.kernels import _build
 from videonavqa_tpu_torch.kernels import attn_tail as attn_mod
 from videonavqa_tpu_torch.kernels import film_reencode as reenc_mod
@@ -3066,17 +3089,30 @@ def check_int8_stem(dev, card):
     return ms
 
 
-def train_detector(dev, card, tmp):
-    """train_obj_detector --data at full width (512 filters, tail 1,024,
-    batch 32, dropout 0.5), 2 epochs of 3 steps on seeded frames: vgg_block1
-    once a step, every loss finite, the second epoch's mean under the
-    first's; the checkpoint and the export written. -> launches."""
-    r = np.random.default_rng(41)
-    data = os.path.join(tmp, "detector.npz")
-    np.savez(data, images=r.integers(0, 256, (DETECTOR_FRAMES, 160, 208, 3), dtype=np.uint8),
-             targets=(r.random((DETECTOR_FRAMES, DETECTOR_CLASSES)) < 0.1).astype(np.float32))
-    losses, step_ms = [], []
+def train_detector(dev, card, tmp, synthetic=False):
+    """train_obj_detector at full width (512 filters, tail 1,024, batch 32,
+    dropout 0.5), 2 epochs of 3 steps on DETECTOR_FRAMES frames: with
+    ``--data`` seeded frames, with ``--synthetic`` frames rendered from
+    synthetic houses (timed, with their positive rate). vgg_block1 once a
+    step, every loss finite, the second epoch's mean under the first's; the
+    checkpoint and the export written. -> launches."""
+    if synthetic:
+        source = ["--synthetic", str(DETECTOR_FRAMES)]
+    else:
+        r = np.random.default_rng(41)
+        data = os.path.join(tmp, "detector.npz")
+        np.savez(data, images=r.integers(0, 256, (DETECTOR_FRAMES, 160, 208, 3), dtype=np.uint8),
+                 targets=(r.random((DETECTOR_FRAMES, DETECTOR_CLASSES)) < 0.1).astype(np.float32))
+        source = ["--data", data]
+    losses, step_ms, rendered = [], [], []
     real = detector_mod.make_train_step
+    real_render = detector_mod.make_synthetic_detector_data
+
+    def timed_render(n, seed=0):
+        t0 = time.perf_counter()
+        frames, targets = real_render(n, seed)
+        rendered.append((time.perf_counter() - t0, frames.shape[0], float(targets.mean())))
+        return frames, targets
 
     def timed(*a, **k):
         step = real(*a, **k)
@@ -3091,24 +3127,34 @@ def train_detector(dev, card, tmp):
         return run
 
     detector_mod.make_train_step = timed
+    detector_mod.make_synthetic_detector_data = timed_render
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
     t0 = time.perf_counter()
     try:
-        detector_mod.main(["--data", data, *DETECTOR_ARGS,
+        detector_mod.main([*source, *DETECTOR_ARGS,
                            "--checkpoint_path", os.path.join(tmp, "det.npz"),
                            "--export_pt", os.path.join(tmp, "obj_detect.pt")])
     finally:
         detector_mod.make_train_step = real
+        detector_mod.make_synthetic_detector_data = real_render
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counters()
     steps = len(losses)
-    log(f"  train_obj_detector --data, 512 filters, tail 1,024, batch 32, dropout 0.5, on"
-        f" {card}: {steps} steps in {wall:.1f} s; ms/step {np.mean(step_ms[1:]):.1f} (steps"
-        f" 2-{steps}), peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; losses"
+    if synthetic:
+        render_s, n, positive = rendered[0]
+        made = (f"rendered {n} frames in {render_s:.2f} s ({n / render_s:.1f} frames/s),"
+                f" positive rate {positive:.4f}; ")
+    else:
+        made = ""
+    log(f"  train_obj_detector {source[0]}, 512 filters, tail 1,024, batch 32, dropout 0.5, on"
+        f" {card}: {made}{steps} steps in {wall:.1f} s; ms/step {np.mean(step_ms[1:]):.1f}"
+        f" (steps 2-{steps}), peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; losses"
         f" {', '.join(f'{v:.4f}' for v in losses)}; launches {launches}")
+    if synthetic and not (len(rendered) == 1 and 0 < rendered[0][2] < 1):
+        raise AssertionError(f"train_obj_detector --synthetic: rendered {rendered}")
     expect_launches("train_obj_detector", launches, {"vgg_block1": steps})
     half = steps // 2
     if steps != 6 or not np.all(np.isfinite(losses)) or \
@@ -3175,6 +3221,159 @@ def stem_rest(dev, card):
         total[name] += n
     log(f"  stem phase on {card} in {time.perf_counter() - t0:.1f} s")
     return total, ms
+
+
+# Phase 10: the dataset generator (cli/generate_dataset.py) run as a user runs
+# it, in a process of its own on the card's host, then film_attn_pt trained,
+# validated and tested from what it wrote and the detector trained from
+# rendered frames. 10 houses split 8 / 1 / 1 (datagen/split.py); npy videos,
+# since the card's machine has no OpenCV to write mp4.
+DATAGEN_TRAJS = 8
+DATAGEN_ARGS = ["--num_houses", "10", "--trajs_per_house", str(DATAGEN_TRAJS), "--seed", "0",
+                "--workers", "4", "--video_format", "npy"]
+# film_attn_pt at FILM_PRESET's widths, at the harness's default batch of 8
+# (or the val split's size where that is smaller): the val and test splits
+# are one house each (at most 8 examples), and the val loader drops a partial
+# batch, as the JAX package's does.
+DATAGEN_BATCH = 8
+
+
+def generate_dataset(tmp, card):
+    """cli/generate_dataset.py with DATAGEN_ARGS in a process of its own, then
+    its output checked (labels in [0, 70), every split non-empty, every video
+    uint8 [T, 160, 208, 3] with T its recorded length) and cli/dataset_stats.py
+    run over it (its totals against labels.json and split.json). -> (data
+    directory, split)."""
+    out = os.path.join(tmp, "generated")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "videonavqa_tpu_torch.cli.generate_dataset",
+                           "--out", out, *DATAGEN_ARGS], cwd=HERE, capture_output=True,
+                          text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"generate_dataset exited {proc.returncode}:"
+                             f" {proc.stdout[-2000:]} {proc.stderr[-4000:]}")
+    labels = load_json(os.path.join(out, "labels.json"))
+    split = load_json(os.path.join(out, "split.json"))
+    if not labels or not all(0 <= v < 70 for v in labels.values()):
+        raise AssertionError(f"generate_dataset: labels {sorted(set(labels.values()))}")
+    if sorted(sum(split.values(), [])) != sorted(labels) or not all(split.values()):
+        raise AssertionError("generate_dataset: split sizes "
+                             + str({k: len(v) for k, v in split.items()}))
+    lengths = {}
+    for name in os.listdir(os.path.join(out, "trajectories")):
+        if name.endswith("_video_lengths.json"):
+            house = name[: -len("_video_lengths.json")]
+            lengths.update({f"{house}_{int(t):04d}": n
+                            for t, n in load_json(os.path.join(out, "trajectories",
+                                                               name)).items()})
+    frames = 0
+    for ex in labels:
+        video = np.load(os.path.join(out, "videos", ex + ".npy"), mmap_mode="r")
+        if video.dtype != np.uint8 or video.shape != (lengths[ex], 160, 208, 3):
+            raise AssertionError(f"generate_dataset: {ex} is {video.dtype} {video.shape}")
+        frames += video.shape[0]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        stats_cli.main(["--data_dir", os.path.join(out, "questions"),
+                        "--split_file", os.path.join(out, "split.json")])
+    lines = buf.getvalue().splitlines()
+    sizes = {line.split()[0]: int(line.split()[1]) for line in lines[1:4]}
+    total = [line for line in lines if line.startswith(">>> STATS:")]
+    if lines[0] != "Examples in each dataset split:" or \
+            sizes != {k: len(v) for k, v in split.items()} or \
+            [line.split()[2] for line in total] != [str(len(labels))]:
+        raise AssertionError(f"dataset_stats printed {lines[:6]}")
+    log(f"  generate_dataset {' '.join(DATAGEN_ARGS)} on {card}'s host: {len(labels)} examples"
+        f" ({frames} frames, {len(load_json(os.path.join(out, 'vocab.json')))} vocab tokens),"
+        f" split {sizes}, in {wall:.2f} s wall ({len(labels) / wall:.2f} examples/s,"
+        f" {frames / wall:.1f} frames/s), the process's start included; dataset_stats:"
+        f" {total[0]!r}")
+    return out, split
+
+
+@contextlib.contextmanager
+def timed_methods(*methods):
+    """{(class, name): [(seconds, raised) of each call]} of the given
+    (class, name) methods inside the block."""
+    spent = {m: [] for m in methods}
+    saved = {m: getattr(*m) for m in methods}
+
+    def timed(key, orig):
+        def run(*a, **k):
+            t0, raised = time.perf_counter(), True
+            try:
+                out = orig(*a, **k)
+                raised = False
+                return out
+            finally:
+                spent[key].append((time.perf_counter() - t0, raised))
+
+        return run
+
+    for key, orig in saved.items():
+        setattr(*key, timed(key, orig))
+    try:
+        yield spent
+    finally:
+        for key, orig in saved.items():
+            setattr(*key, orig)
+
+
+def generation_breakdown(tmp, card):
+    """One house of DATAGEN_ARGS generated in this process, its wall time
+    split into question generation (the attempts that timed out apart), the
+    observation passes and the videos' rendering."""
+    gen = (generator_mod.QuestionGenerator, "generate_example")
+    observe = (trajectory_mod.TrajectoryObserver, "observe")
+    render = (trajectory_mod.TrajectoryObserver, "render_video")
+    t0 = time.perf_counter()
+    with timed_methods(gen, observe, render) as spent:
+        _, n = generate_cli.generate_house(0, os.path.join(tmp, "one_house"), seed=0,
+                                           trajs_per_house=DATAGEN_TRAJS, num_rooms=4,
+                                           video_format="npy")
+    wall = time.perf_counter() - t0
+    timed_out = [t for t, raised in spent[gen] if raised]
+    answered = [t for t, raised in spent[gen] if not raised]
+    observed, rendered = (sum(t for t, _ in spent[k]) for k in (observe, render))
+    rest = wall - sum(answered) - sum(timed_out) - observed - rendered
+    log(f"  one house ({DATAGEN_TRAJS} trajectories, {n} examples) in this process on {card}'s"
+        f" host: {wall:.2f} s; generate_example {len(answered)} answered in"
+        f" {sum(answered):.2f} s, {len(timed_out)} timed out in {sum(timed_out):.2f} s (the"
+        f" 0.5 / 0.8 s budgets); observe (the semantic and depth passes) {observed:.2f} s;"
+        f" render_video {len(spent[render])} videos in {rendered:.2f} s; the rest {rest:.2f} s")
+
+
+def datagen(dev, card):
+    """Phase 10 -> launches summed over its counted runs."""
+    t0 = time.perf_counter()
+    total = dict.fromkeys(COUNTERS, 0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_datagen_") as tmp:
+        data, split = generate_dataset(tmp, card)
+        generation_breakdown(tmp, card)
+        B = min(DATAGEN_BATCH, len(split["val"]))
+        steps, val, test = len(split["train"]) // B, len(split["val"]) // B, \
+            -(-len(split["test"]) // B)
+        if not (steps and val and test):
+            raise AssertionError(f"datagen: {steps} train steps, {val} val and {test} test"
+                                 f" batches at batch {B}")
+        preset = FILM_PRESET + ["--batch_size", str(B), "--data_dir", data]
+        launches, _ = run_entry(
+            f"q_and_v_eval film_attn_pt (FILM_PRESET at batch {B}) on the generated set,"
+            " 1 epoch", q_and_v_eval.main,
+            preset + ["--checkpoint_path", os.path.join(tmp, "film.npz")],
+            {"vgg_block1": steps + val, "film_reencode": val, "attn_tail": val},
+            os.path.join(tmp, "metrics.jsonl"))
+        total = {k: total[k] + launches[k] for k in total}
+        launches = run_test_entry(
+            "q_and_v_test film_attn_pt from its e0_ checkpoint", q_and_v_test.main,
+            preset + ["--checkpoint_path", os.path.join(tmp, "e0_film.npz")],
+            {"vgg_block1": test, "film_reencode": test, "attn_tail": test})
+        total = {k: total[k] + launches[k] for k in total}
+        for name, n in train_detector(dev, card, tmp, synthetic=True).items():
+            total[name] += n
+    log(f"  datagen phase on {card} in {time.perf_counter() - t0:.1f} s")
+    return total
 
 
 def main():
@@ -3263,6 +3462,10 @@ def main():
         launches[name] += n
     log(f"  int8 stem vs bf16 stem on {card}, 1,120 frames: "
         + ", ".join(f"{k} {v:.2f} ms" for k, v in stem_times.items()))
+
+    log("phase datagen")
+    for name, n in datagen(dev, card).items():
+        launches[name] += n
 
     def entry(name, row, err):
         src, repl = REPO_SOURCE[name]

@@ -223,9 +223,14 @@ for want in ('kernels.lstm', 'models.q_only_lstm', 'models.time_multi_hop',
              'models.v_only_cnn3d', 'models.concat3d', 'models.q_only_bow',
              'cli.q_and_v_test', 'cli.q_only_test', 'cli.v_only_test',
              'cli.results_analysis', 'stem.quant', 'cli.train_obj_detector',
-             'utils.zoo_import', 'utils.zoo_export', 'cli.export_checkpoint'):
+             'utils.zoo_import', 'utils.zoo_export', 'cli.export_checkpoint',
+             'datagen.assets', 'datagen.engine', 'datagen.generator', 'datagen.geometry',
+             'datagen.house3d_backend', 'datagen.labels', 'datagen.programs',
+             'datagen.renderer', 'datagen.scene', 'datagen.split', 'datagen.stats',
+             'datagen.templates', 'datagen.text', 'datagen.trajectory', 'datagen.vision',
+             'cli.generate_dataset', 'cli.dataset_stats'):
     assert 'videonavqa_tpu_torch.' + want in mods, want
-assert len(mods) >= 73, len(mods)
+assert len(mods) >= 90, len(mods)
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,

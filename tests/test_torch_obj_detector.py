@@ -13,7 +13,9 @@ carried over, a narrow VGG from a ``--frcnn_pretrained_path``
 file, so the test takes seconds): the same printed lines, numbers rtol 1e-5;
 the checkpoint read by JAX's ``load_checkpoint``, its parameters and state
 within TRAINED_ATOL of JAX's (NOISE_ATOL for the biases whose gradient is
-float noise). Measured values stand beside each bound.
+float noise). ``--synthetic 8`` in the same set-up: the rendered frames and
+targets bit-equal to JAX's (``make_synthetic_detector_data``, two seeds),
+the epoch lines within LINE_RTOL. Measured values stand beside each bound.
 """
 
 import functools
@@ -44,6 +46,7 @@ LOGIT_ATOL = 1e-5      # measured: 4.2e-7 eval, 6.4e-6 train (batch statistics o
 STATE_ATOL = 1e-6      # measured: 1.7e-7
 TRAINED_ATOL = 2e-5    # after 8 Adam steps at lr 1e-4; measured 2.1e-6 (bn_tail1/var)
 LINE_RTOL = 1e-5
+SYNTHETIC_FRAMES, SYNTHETIC_CLASSES = 8, 27   # --synthetic: DEFAULT_DETECTOR_CLASSES
 # The biases right before a train-mode BatchNorm have a zero gradient in exact
 # arithmetic (the batch mean takes them out), so Adam turns their float noise
 # into steps of up to the lr either way, as the noise leaves of
@@ -197,15 +200,14 @@ def _lines(text):
             for line in text.splitlines() if line.strip()]
 
 
-def test_train_obj_detector_matches_jax(tmp_path, monkeypatch, capsys):
-    r = np.random.default_rng(41)
-    data = tmp_path / "frames.npz"
-    np.savez(data, images=r.integers(0, 256, (16, 160, 208, 3), dtype=np.uint8),
-             targets=(r.random((16, CLASSES)) < 0.3).astype(np.float32))
+def _train_both(tmp_path, monkeypatch, capsys, source, classes):
+    """train_obj_detector in both packages on ``source`` (8 filters, tail 16,
+    batch 4, 2 epochs, dropout 0, f32, JAX's init carried over, the narrow
+    VGG) -> (JAX's init trees, the port's printed lines, JAX's)."""
     _narrow_vgg_pth(tmp_path / "vgg.pth")
-    common = ["--data", str(data), "--num_filters", str(NUM_FILTERS), "--tail_hidden_dim",
-              str(HIDDEN), "--tail_dropout_p", "0.0", "--batch_size", "4", "--num_epochs", "2",
-              "--frcnn_pretrained_path", str(tmp_path / "vgg.pth")]
+    common = source + ["--num_filters", str(NUM_FILTERS), "--tail_hidden_dim",
+                       str(HIDDEN), "--tail_dropout_p", "0.0", "--batch_size", "4",
+                       "--num_epochs", "2", "--frcnn_pretrained_path", str(tmp_path / "vgg.pth")]
 
     # both in f32; the port starts from JAX's init (the generators differ)
     monkeypatch.setattr(jtod, "vgg_partial", functools.partial(jax_vgg_partial,
@@ -216,7 +218,7 @@ def test_train_obj_detector_matches_jax(tmp_path, monkeypatch, capsys):
                                                               dtype=torch.float32))
     monkeypatch.setattr(tod, "obj_detector", functools.partial(tod.obj_detector,
                                                                dtype=torch.float32))
-    jinit = jax_init_obj_detector(jax.random.PRNGKey(0), nb_classes=CLASSES,
+    jinit = jax_init_obj_detector(jax.random.PRNGKey(0), nb_classes=classes,
                                   num_filters=NUM_FILTERS, tail_hidden_dim=HIDDEN)
     jinit_np = jax.tree.map(np.asarray, jinit)
     monkeypatch.setattr(tod, "init_obj_detector",
@@ -233,6 +235,15 @@ def test_train_obj_detector_matches_jax(tmp_path, monkeypatch, capsys):
     assert sum(line.startswith("Epoch") for line, _ in got) == 2
     for (line, g), (_, w) in zip(got, want):
         np.testing.assert_allclose(g, w, rtol=LINE_RTOL, atol=1e-6, err_msg=line)
+    return jinit
+
+
+def test_train_obj_detector_matches_jax(tmp_path, monkeypatch, capsys):
+    r = np.random.default_rng(41)
+    data = tmp_path / "frames.npz"
+    np.savez(data, images=r.integers(0, 256, (16, 160, 208, 3), dtype=np.uint8),
+             targets=(r.random((16, CLASSES)) < 0.3).astype(np.float32))
+    jinit = _train_both(tmp_path, monkeypatch, capsys, ["--data", str(data)], CLASSES)
 
     # the port's checkpoint in JAX's loader, next to JAX's own
     jp, js, _, jmeta = jckpt.load_checkpoint(str(tmp_path / "j.npz"), params_template=jinit[0],
@@ -252,10 +263,32 @@ def test_train_obj_detector_matches_jax(tmp_path, monkeypatch, capsys):
         ["bn_input.weight", "bn_input.bias"]
 
 
+@pytest.mark.parametrize("seed", [0, 5])
+def test_make_synthetic_detector_data_matches_jax(seed):
+    assert tod.DEFAULT_DETECTOR_CLASSES == jtod.DEFAULT_DETECTOR_CLASSES
+    assert len(tod.DEFAULT_DETECTOR_CLASSES) == SYNTHETIC_CLASSES
+    frames, targets = tod.make_synthetic_detector_data(SYNTHETIC_FRAMES, seed)
+    want_frames, want_targets = jtod.make_synthetic_detector_data(SYNTHETIC_FRAMES, seed)
+    assert frames.dtype == want_frames.dtype == np.uint8
+    assert frames.shape == (SYNTHETIC_FRAMES, 160, 208, 3)
+    assert targets.dtype == want_targets.dtype == np.float32
+    assert np.array_equal(frames, want_frames) and np.array_equal(targets, want_targets)
+    assert 0 < targets.mean() < 1
+
+
+def test_train_obj_detector_synthetic_matches_jax(tmp_path, monkeypatch, capsys):
+    """--synthetic 8: the same rendered frames and targets, then the same
+    epoch lines as JAX's trainer (the --data test's set-up)."""
+    jinit = _train_both(tmp_path, monkeypatch, capsys, ["--synthetic", str(SYNTHETIC_FRAMES)],
+                        SYNTHETIC_CLASSES)
+    _, _, _, meta = jckpt.load_checkpoint(str(tmp_path / "t.npz"), params_template=jinit[0],
+                                          state_template=jinit[1])
+    assert meta == {"model": "obj_detector", "nb_classes": SYNTHETIC_CLASSES}
+
+
 @pytest.mark.parametrize("argv, match", [
-    (["--synthetic", "16"], "ROADMAP: the JAX-free tools"),
-    ([], "need --data"),
-], ids=lambda v: "A10" if v == "ROADMAP: the JAX-free tools" else None)   # ids as item A10
+    pytest.param([], "need --data", id="argv1-need --data"),
+])
 def test_train_obj_detector_refusals(argv, match):
     with pytest.raises(SystemExit, match=match):
         tod.main(argv + ["--device", "cpu"])

@@ -24,10 +24,14 @@ the JAX package's so each function's counterpart is easy to find:
 - ``cli/``      — the training harness and its entry points
                   (``q_and_v_eval``, ``v_only_eval``, ``q_only_eval``), the
                   serving ones (``extract_features``, ``serve``, ``predict``)
-                  and the dataset tools (``make_synthetic_data``,
-                  ``pack_dataset``).
-- ``datagen/``  — copies of the JAX package's question tokenizer and answer
-                  classes.
+                  and the dataset tools (``generate_dataset``,
+                  ``dataset_stats``, ``make_synthetic_data``,
+                  ``pack_dataset``, ``train_obj_detector``).
+- ``datagen/``  — a copy of the JAX package's dataset generator (numpy and
+                  scipy): the synthetic houses and their renderer,
+                  trajectories, question templates and programs, the
+                  answer-balancing engine, the tokenizer, labels, splits,
+                  statistics and the House3D seam.
 - ``utils/``    — constants, checkpoints in the JAX package's format (both
                   ways, with Adam's state), the stem's importers, JSONL
                   metrics and device selection.

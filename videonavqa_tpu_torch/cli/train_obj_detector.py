@@ -16,9 +16,13 @@ reference's keys.
 ``--data``: an .npz with ``images`` (uint8 [N, 160, 208, 3], BGR) and
 ``targets`` ([N, classes], 0/1). Each epoch visits the frames in the order
 ``np.random.RandomState(epoch).permutation(N)``, dropping the last partial
-batch, and prints its mean loss and accuracy. ``--synthetic N`` (frames
-rendered from synthetic houses) needs the datagen renderer, which is not
-ported yet (ROADMAP: the JAX-free tools): it exits. Runs on the card unless ``--device cpu``.
+batch, and prints its mean loss and accuracy. ``--synthetic N`` trains on N
+frames rendered from procedurally generated houses instead (numpy, on the
+host; the targets are the classes visible in the semantic render), the same
+frames and targets as the JAX trainer's from the same ``--seed``. Runs on the
+card unless ``--device cpu``.
+
+    python -m videonavqa_tpu_torch.cli.train_obj_detector --synthetic 96 --num_epochs 2
 """
 
 from __future__ import annotations
@@ -34,17 +38,52 @@ from videonavqa_tpu_torch.stem import (
     init_obj_detector, init_vgg_partial, obj_detector, vgg_partial,
     vgg_partial_block1_kernel,
 )
+from videonavqa_tpu_torch.datagen.ontology import QUERY_OBJECTS
 from videonavqa_tpu_torch.train.step import make_optimizer
 from videonavqa_tpu_torch.utils import checkpoint as ckpt
 from videonavqa_tpu_torch.utils.device import resolve_device, tree_to
+
+#: class list for detection targets; the reference's obj_detect.pt used 27
+#: classes whose exact list is not recorded in-repo — configurable here.
+DEFAULT_DETECTOR_CLASSES = sorted(QUERY_OBJECTS)[:27]
+
+
+def make_synthetic_detector_data(n, seed=0):
+    """(frames u8 [N,160,208,3], targets f32 [N,27]) from synthetic houses."""
+    from videonavqa_tpu_torch.datagen.renderer import (
+        RenderMode, SyntheticRenderer, generate_synthetic_house,
+    )
+    from videonavqa_tpu_torch.datagen.vision import objects_in_frame
+
+    rng = np.random.RandomState(seed)
+    cls_index = {c: i for i, c in enumerate(DEFAULT_DETECTOR_CLASSES)}
+    frames = np.empty((n, 160, 208, 3), dtype=np.uint8)
+    targets = np.zeros((n, len(cls_index)), dtype=np.float32)
+    i = 0
+    while i < n:
+        house = generate_synthetic_house(rng, num_rooms=3)
+        renderer = SyntheticRenderer(house)
+        for _ in range(min(16, n - i)):
+            room = house.rooms[rng.randint(len(house.rooms))]
+            b = room.bbox
+            pose = (rng.uniform(b["min"][0] + 0.5, b["max"][0] - 0.5), 1.2,
+                    rng.uniform(b["min"][2] + 0.5, b["max"][2] - 0.5),
+                    rng.uniform(0, 360))
+            frames[i] = renderer.render(pose, RenderMode.RGB)
+            semantic = renderer.render(pose, RenderMode.SEMANTIC)
+            depth = renderer.render(pose, RenderMode.DEPTH)
+            for name in objects_in_frame(semantic, renderer.rgb_to_obj, depth):
+                if name in cls_index:
+                    targets[i, cls_index[name]] = 1.0
+            i += 1
+    return frames, targets
 
 
 def build_parser():
     parser = argparse.ArgumentParser()
     parser.add_argument("--data", type=str, help=".npz with 'images' u8 and 'targets'")
     parser.add_argument("--synthetic", type=int, default=0,
-                        help="refused: rendering labeled frames is not ported yet "
-                             "(ROADMAP: the JAX-free tools)")
+                        help="render N synthetic labeled frames instead")
     parser.add_argument("--num_filters", type=int, default=512)
     parser.add_argument("--tail_hidden_dim", type=int, default=1024)
     parser.add_argument("--tail_dropout_p", type=float, default=0.5)
@@ -91,13 +130,13 @@ def make_train_step(vgg_params, params, optimizer, *, tail_dropout_p, generator,
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.synthetic:
-        raise SystemExit("--synthetic: rendering labeled frames from synthetic houses is not "
-                         "ported yet (ROADMAP: the JAX-free tools); pass --data <npz>")
-    if not args.data:
+        images, targets = make_synthetic_detector_data(args.synthetic, args.seed)
+    elif args.data:
+        with np.load(args.data) as z:
+            images, targets = z["images"], z["targets"].astype(np.float32)
+    else:
         raise SystemExit("need --data or --synthetic N")
     device = resolve_device(args.device)
-    with np.load(args.data) as z:
-        images, targets = z["images"], z["targets"].astype(np.float32)
     nb_classes = targets.shape[1]
     print(f"{images.shape[0]} frames, {nb_classes} classes, "
           f"{targets.mean():.3f} positive rate")
