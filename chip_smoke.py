@@ -216,7 +216,26 @@ kernel's plain version):
              over the dumps; cli/train_obj_detector.py --synthetic 96 at
              full width (as phase 9's --data run: vgg_block1 once a step,
              the loss finite and falling), its render time, frames/s and
-             positive rate printed.
+             positive rate printed;
+11. mesh   — parallel/ on the one card, on phase 7's dataset and phase 8's
+             test-split cache and checkpoint, film_attn_pt at the eval.sh
+             preset's widths, batch 32: (a) q_and_v_eval one epoch from the
+             bf16 cache without a mesh, with --mesh_devices 1 (NCCL, a world
+             of one) and as one --distributed process, epoch losses rtol
+             1e-5, val hits and predictions equal, examples/s and the
+             gradient sum's ms and bytes a step; (b) two gloo ranks spawned
+             on the one card (its times say nothing about scaling): a train
+             step at data 2 (16 rows a rank) and at model 2, f32 TF32 off,
+             against one process (loss rtol 1e-5, params 2.5e-3, BN state
+             1e-5; the gradients the step summed over 'data' and the
+             clipped ones it applied, relative L2 within 4x the one-process
+             step's own move when the rows are reordered, or 1e-4; the norm
+             after the clip rtol 1e-4), the eval step at data 2 with the
+             kernels and the calibrated int8 trunk (probabilities 2e-2, the
+             argmax rule), and the engine on model 2 (two threads) against
+             one device; (c) the
+             daemon with --mesh_devices 1 over the bf16 cache, each answer
+             against run_batch of the engine without a mesh.
 
 Run one kernel's check alone (it builds only that source), e.g.
 ``python3 -c "import torch, chip_smoke as cs; cs.check_vgg_block1(torch.device('cuda'))"``.
@@ -242,9 +261,11 @@ import sys
 import tempfile
 import threading
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.multiprocessing as torch_mp
 import torch.nn.functional as F
 
 from videonavqa_tpu_torch.cli import common as harness_mod
@@ -262,6 +283,7 @@ from videonavqa_tpu_torch.data.pipeline import DataPaths, load_json
 from videonavqa_tpu_torch.data.synthetic import generate_synthetic_dataset
 from videonavqa_tpu_torch.data.vnr import VNRBatchLoader
 from videonavqa_tpu_torch.datagen import generator as generator_mod
+from videonavqa_tpu_torch.datagen.ontology import ANSWER_VOCAB
 from videonavqa_tpu_torch.datagen import trajectory as trajectory_mod
 from videonavqa_tpu_torch.kernels import _build
 from videonavqa_tpu_torch.kernels import attn_tail as attn_mod
@@ -282,6 +304,8 @@ from videonavqa_tpu_torch.ops.masking import attn_frame_mask, length_mask
 from videonavqa_tpu_torch.ops.quant import (
     act_scale, conv2d_int8_prequant, quantize_act, quantize_weight_channelwise)
 from videonavqa_tpu_torch.ops.video import normalize_video
+from videonavqa_tpu_torch.parallel import collectives, launch, multihost
+from videonavqa_tpu_torch.parallel.mesh import make_mesh, param_shardings, put_global
 from videonavqa_tpu_torch.serve.engine import STEM_SEED, InferenceEngine
 from videonavqa_tpu_torch.serve.loadgen import request as http
 from videonavqa_tpu_torch.stem import init_obj_detector, init_vgg_partial, stem_features
@@ -3376,6 +3400,361 @@ def datagen(dev, card):
     return total
 
 
+# --- phase 11: the mesh ----------------------------------------------------
+#
+# The card's machine holds one H100, so nothing here measures scaling. (a) the
+# harness on NCCL worlds of one; (b) two gloo ranks sharing the one card,
+# against one process (their times say nothing about scaling); (c) the daemon
+# on a one-device mesh. film_attn_pt at its eval.sh preset widths, batch 32.
+
+MESH_LOSS_RTOL = 1e-5     # losses, mesh against none
+MESH_PARAM_ATOL = 2.5e-3  # params after one Adam step: the JAX DP test's bound
+# the step's gradients (summed over 'data', and clipped) as a relative L2
+# error over every leaf, and the norm after the clip, against one process;
+# Adam's first step is ~lr * sign(g) and hides a wrong gradient's scale.
+# The gradients may move MESH_ORDER_FACTOR times as far as the one-process
+# step's own move when only the rows' order changes: at these widths that
+# alone moves the trunk's conv weight gradients (cuDNN's weight-gradient
+# sums over 145,600 positions a channel) by ~8e-4 over all leaves
+MESH_GRAD_RTOL = 1e-4
+MESH_ORDER_FACTOR = 4
+MESH_STATE_ATOL = 1e-5    # BN running statistics
+MESH_BATCH = 32
+MESH_TRAIN_CFG = dataclasses.replace(FILM_ATTN_CFG, compute_dtype="float32",
+                                     use_pallas_kernels=False, use_int8_trunk=False)
+MESH_REQUESTS = 8
+SHARED_CARD = "(b) runs two ranks on ONE card through gloo: its times say nothing about scaling"
+
+
+@contextlib.contextmanager
+def timed_grad_sums(keep=None):
+    """[(ms, bytes)] of each gradient sum over 'data' in the block (the card
+    synchronized before and after); ``keep``, a list, also gets each sum's
+    gradients."""
+    seen, orig = [], collectives.sum_grads_over_data
+
+    def timed(grads):
+        sync(grads[0].device)
+        t0 = time.perf_counter()
+        out = orig(grads)
+        sync(grads[0].device)
+        seen.append(((time.perf_counter() - t0) * 1e3, 4 * sum(g.numel() for g in grads)))
+        if keep is not None:
+            keep.append(out)
+        return out
+
+    collectives.sum_grads_over_data = timed
+    try:
+        yield seen
+    finally:
+        collectives.sum_grads_over_data = orig
+
+
+def mesh_batch(dev, B, cfg):
+    return tree_to(train_batch(B, cfg.max_num_frames, cfg.max_q_len, cfg.vocab_size,
+                               cfg.num_classes, 51, feat_shape=(10, 13, cfg.num_input_channels)),
+                   dev)
+
+
+def mesh_train(dev, batch, rank, ref, cfg):
+    """One train step of ``cfg`` on ``rank``'s rows (a one-process step
+    without ``rank``) -> (results, whole params, state, the step's
+    gradients: {'summed', 'clipped'}, each {path: whole leaf})."""
+    spec = get_model(cfg.model)
+    params, state = spec.init(torch.Generator().manual_seed(0), cfg, dev)
+    if rank is not None:
+        params = put_global(params, param_shardings(params, rank), rank)
+        start, per = multihost.host_batch_slice(len(batch["label"]), rank)
+        batch = {k: v[start:start + per] for k, v in batch.items()}
+    step = make_train_step(spec, cfg, make_optimizer(params, PRESET_L_RATE[cfg.model]),
+                           **TRAIN_STEP_OPTIONS[cfg.model])
+    summed = []
+    with timed_grad_sums(summed) as sums:
+        sync(dev)
+        t0 = time.perf_counter()
+        state, m = step(params, state, batch, torch.Generator(device=dev).manual_seed(3))
+        sync(dev)
+        wall = time.perf_counter() - t0
+    items = tree_items(params)
+    whole = {k: collectives.full_leaf(v).detach() for k, v in items}
+    # the gradients the step summed over 'data' (before the clip), and the
+    # clipped ones it applied
+    grads = {"summed": {k: collectives.full_leaf(g, like=p)
+                        for (k, p), g in zip(items, summed[0])},
+             "clipped": {k: collectives.full_leaf(p.grad, like=p) for k, p in items}}
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "step_s": wall,
+           "grad_sum": sums[0]}
+    if ref is not None:
+        rloss, rnorm, rparams, rstate, rgrads = ref
+        out["loss_err"] = abs(out["loss"] - rloss) / abs(rloss)
+        out["norm_err"] = abs(out["grad_norm"] - rnorm) / rnorm
+        for kind, g in grads.items():
+            r = rgrads[kind]
+            out[f"{kind}_err"] = float(torch.sqrt(
+                sum(torch.sum(torch.square(g[k].float() - r[k].float())) for k in r)
+                / sum(torch.sum(torch.square(r[k].float())) for k in r)))
+        out["param_err"] = max(float((whole[k] - rparams[k]).abs().max()) for k in rparams)
+        out["state_err"] = max(float((v - rstate[k]).abs().max())
+                               for k, v in tree_items(state))
+    return out, whole, dict(tree_items(state)), grads
+
+
+def mesh_eval_probs(dev, batch, rank, cfg):
+    """``cfg``'s calibration forward, then its eval step (on the card the
+    kernels, the calibrated int8 trunk) on ``rank``'s rows -> the global
+    batch's probabilities on the host."""
+    spec = get_model(cfg.model)
+    params, state = spec.init(torch.Generator().manual_seed(0), cfg, dev)
+    feats = dict(batch, v_features=batch["v_features"].to(torch.bfloat16))
+    if rank is not None:
+        start, per = multihost.host_batch_slice(len(batch["label"]), rank)
+        feats = {k: v[start:start + per] for k, v in feats.items()}
+    with torch.inference_mode():
+        _, state = forward(spec, dataclasses.replace(cfg, int8_trunk_calibrate=True), params,
+                           state, feats)
+        probs = torch.softmax(make_eval_step(spec, cfg)(params, state, feats)["logits"],
+                              dim=-1).float().cpu().numpy()
+    if rank is not None:
+        probs = np.concatenate(rank.data.all_gather_object(probs))
+    return probs
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def mesh_shared_card_rank(r, port, results, plan):
+    """One of (b)'s two gloo ranks, both on ``plan.device`` (the card).
+    Rank 0 first runs the one-process train step and eval on the whole
+    batch of ``plan.batch`` rows, and the train step again on the same rows
+    with the two halves swapped (how far the summation order alone moves
+    the gradients); then both ranks run data 2 (train, eval) and model 2
+    (train) on the mesh; rank 0 compares."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(plan.device)
+    batch = mesh_batch(dev, plan.batch, plan.train_cfg)
+    ref = ref_probs = None
+    if r == 0:
+        ref_out, rparams, rstate, rgrads = mesh_train(dev, batch, None, None, plan.train_cfg)
+        ref = (ref_out["loss"], ref_out["grad_norm"], rparams, rstate, rgrads)
+        ref_probs = mesh_eval_probs(dev, batch, None, plan.eval_cfg)
+        half = plan.batch // 2
+        swapped = {k: torch.cat([v[half:], v[:half]]) for k, v in batch.items()}
+        order = mesh_train(dev, swapped, None, ref, plan.train_cfg)[0]
+    reset_counters()
+    multihost.initialize(f"127.0.0.1:{port}", 2, r, backend="gloo", device=dev)
+    try:
+        out = {"rows reordered": order} if r == 0 else {}
+        rank = make_mesh(2, 1).local
+        collectives.set_process_rank(rank)
+        out["train dp 2"] = mesh_train(dev, batch, rank, ref, plan.train_cfg)[0]
+        probs = mesh_eval_probs(dev, batch, rank, plan.eval_cfg)
+        if r == 0:
+            out["eval dp 2"] = prob_errors(probs, ref_probs)
+        rank = make_mesh(2, 2).local
+        collectives.set_process_rank(rank)
+        out["train model 2"] = mesh_train(dev, batch, rank, ref, plan.train_cfg)[0]
+        out["launches"] = read_counters()
+        results.put((r, out))
+    finally:
+        collectives.set_process_rank(None)
+        multihost.shutdown()
+
+
+def mesh_shared_card(plan):
+    """(b): two ranks spawned on the one card -> (rank 0's results, launches
+    summed over both ranks' mesh work)."""
+    results = torch_mp.get_context("spawn").Queue()
+    procs = launch.spawn_ranks(mesh_shared_card_rank, (launch.free_port(), results, plan),
+                               nprocs=2, first=0, quiet=False)
+    got, deadline = {}, time.monotonic() + 900
+    while len(got) < 2:
+        try:
+            r, out = results.get(timeout=1.0)
+            got[r] = out
+        except Exception:   # queue.Empty: see whether a rank failed
+            if procs.join(timeout=0) and len(got) < 2:
+                raise AssertionError("(b): the ranks ended without their results")
+            if time.monotonic() > deadline:
+                launch.kill(procs)
+                raise AssertionError("(b): no results within 900 s")
+    launch.join(procs, 120)
+    launches = {k: got[0]["launches"][k] + got[1]["launches"][k] for k in COUNTERS}
+    return got[0], launches
+
+
+def mesh_served_model_parallel(dev, card):
+    """(b)'s served batch: the engine on a mesh of model 2 over the one card
+    (two threads) against the engine without one -> (max |dprob|, launches)."""
+    gen = torch.Generator(device=dev).manual_seed(52)
+    feats = seeded_features(2 * MESH_BATCH, 35, FILM_ATTN_CFG, gen, dev).cpu()
+    items = [(feats[i], 35 - i % 7, [1 + (i * 7 + k) % 133 for k in range(3 + i % 9)])
+             for i in range(2 * MESH_BATCH)]
+    one = InferenceEngine(FILM_ATTN_CFG, max_batch=MESH_BATCH, frame_buckets=(), seed=0,
+                          device=dev)
+    two = InferenceEngine(FILM_ATTN_CFG, max_batch=MESH_BATCH, frame_buckets=(), seed=0,
+                          mesh=make_mesh(2, 2, devices=[dev, dev]))
+    for eng in (one, two):   # the first batch calibrates the int8 trunk
+        eng.run_batch(items[:MESH_BATCH])
+    want = one.run_batch(items[MESH_BATCH:])
+    sync(dev)
+    reset_counters()
+    got = two.run_batch(items[MESH_BATCH:])
+    sync(dev)
+    launches = read_counters()
+    err, bad = prob_errors(got, want)
+    log(f"  (b) served batch of {MESH_BATCH} on model 2 (two threads on the one card): max"
+        f" |dprob| {err:.3e} against the engine without a mesh (bound {PROB_ATOL}), {bad}"
+        f" argmax changes where the margin exceeds {ARGMAX_MARGIN}; launches {launches}")
+    if err > PROB_ATOL or bad:
+        raise AssertionError("(b): the model-parallel engine does not serve as one device")
+    expect_launches("(b) served batch, model 2", launches,
+                    {"film_reencode": 2, "attn_tail": 2, "int8_matmul_fused": 10})
+    return launches
+
+
+def mesh_daemon(card, data, ckpt, vocab):
+    """(c): the daemon with --mesh_devices 1 over the bf16 cache, answering
+    MESH_REQUESTS /predict requests one at a time, each against run_batch of
+    the engine without a mesh -> launches."""
+    common = DAEMON_PRESET + ["--data_dir", data, "--checkpoint_path", ckpt]
+    engine, batcher, server = serve_mod.build_server(
+        serve_mod.build_parser().parse_args(common + ["--mesh_devices", "1"]))
+    single = InferenceEngine.from_args(serve_mod.build_parser().parse_args(common))
+    if engine.mesh is None or engine.mesh.shape != {"data": 1, "model": 1}:
+        raise AssertionError("(c): the daemon is not on a mesh")
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    ids = sorted(engine.id_to_idx)
+    worst, total = 0.0, dict.fromkeys(COUNTERS, 0)
+    t0 = time.perf_counter()
+    try:
+        port = server.server_address[1]
+        for i in range(MESH_REQUESTS):
+            q = question_text(i)
+            ex = ids[(5 * i) % len(ids)]
+            engine.rng, single.rng = np.random.RandomState(i), np.random.RandomState(i)
+            frames, vl = single.load_example(ex)
+            want = single.run_batch([(frames, vl, single.encode_question(q))])[0]
+            torch.cuda.synchronize()
+            reset_counters()
+            status, body = http(port, "/predict", {"example": ex, "question": q})
+            torch.cuda.synchronize()
+            total = {k: total[k] + v for k, v in read_counters().items()}
+            if status != 200:
+                raise AssertionError(f"(c): request {i} answered {status}: {body}")
+            got = np.full_like(want, np.inf)   # a class outside the answer's top 5
+            for a, p in body["top"]:
+                got[ANSWER_VOCAB[a]] = p
+            top = np.argsort(-want)[:5]
+            err = float(np.abs(got[top] - want[top]).max())
+            worst = max(worst, err)
+            if err > PROB_ATOL or int(np.argmax(want)) != ANSWER_VOCAB[body["answer"]] and \
+                    np.diff(np.sort(np.log(want))[-2:])[0] > ARGMAX_MARGIN:
+                raise AssertionError(f"(c): request {i} answered {body} against {want[top]}")
+    finally:
+        server.shutdown()
+        serve_mod.drain(server, batcher)
+    wall = time.perf_counter() - t0
+    expect_launches("(c) the daemon on a one-device mesh", total,
+                    {"film_reencode": MESH_REQUESTS, "attn_tail": MESH_REQUESTS,
+                     "int8_matmul_fused": 5 * (MESH_REQUESTS - 1)})
+    log(f"  (c) the daemon --mesh_devices 1 on {card}: {MESH_REQUESTS} requests one at a time in"
+        f" {wall:.2f} s, each against run_batch of the engine without a mesh: max |dprob| of"
+        f" the top 5 {worst:.3e} (bound {PROB_ATOL}); launches {total}")
+    return total
+
+
+def mesh(card, tmp, data, ckpt):
+    """Phase 11 -> launches summed over its counted runs."""
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(COUNTERS, 0)
+    log(f"  card: {card}")
+
+    # (a) NCCL worlds of one, through the harness, against the run without a mesh
+    preset = FILM_PRESET + ["--feature_cache", "true", "--data_dir", data]
+    runs = {}
+    for label, extra in (
+            ("no mesh", []), ("--mesh_devices 1", ["--mesh_devices", "1"]),
+            ("--mesh_devices 1 --distributed (one process)",
+             ["--mesh_devices", "1", "--distributed", "true", "--num_processes", "1",
+              "--process_id", "0", "--coordinator_address",
+             f"127.0.0.1:{launch.free_port()}"])):
+        with timed_grad_sums() as sums:
+            launches, seen = run_entry(f"(a) q_and_v_eval film_attn_pt, bf16 cache, {label}",
+                                       q_and_v_eval.main, preset + extra,
+                                       {"film_reencode": 1, "attn_tail": 1},
+                                       os.path.join(tmp, f"mesh_{len(runs)}.jsonl"))
+        total = {k: total[k] + launches[k] for k in total}
+        runs[label] = (seen, sums)
+    base = runs["no mesh"][0]
+    for label, (seen, sums) in runs.items():
+        errs = []
+        for (train, s), (_, b) in zip(seen, base):
+            errs.append(abs(s["loss"] - b["loss"]) / abs(b["loss"]))
+            if errs[-1] > MESH_LOSS_RTOL or (not train and (
+                    s["hit"] != b["hit"] or not np.array_equal(s["y_pred"], b["y_pred"]))):
+                raise AssertionError(f"(a) {label}: the {'train' if train else 'val'} epoch"
+                                     f" differs from the run without a mesh (loss rel."
+                                     f" {errs[-1]:.2e})")
+        rates = ", ".join(f"{'train' if t else 'val'} {s['examples_per_sec']:.2f} ex/s"
+                          for t, s in seen)
+        grad = (f"; the gradient sum over 'data' {', '.join(f'{m:.3f}' for m, _ in sums)} ms"
+                f" (each step's), {sums[0][1]} bytes" if label != "no mesh" else "")
+        log(f"  (a) {label} on {card}: {rates}{grad}; epoch losses rel."
+            f" {', '.join(f'{e:.2e}' for e in errs)} from the run without a mesh (bound"
+            f" {MESH_LOSS_RTOL}), val hits and predictions equal")
+
+    # (b) two gloo ranks sharing the one card
+    log(f"  {SHARED_CARD}")
+    t0 = time.perf_counter()
+    got, launches = mesh_shared_card(SimpleNamespace(
+        device="cuda:0", batch=MESH_BATCH, train_cfg=MESH_TRAIN_CFG, eval_cfg=FILM_ATTN_CFG))
+    total = {k: total[k] + launches[k] for k in total}
+    order = got["rows reordered"]
+    bound = {kind: max(MESH_GRAD_RTOL, MESH_ORDER_FACTOR * order[f"{kind}_err"])
+             for kind in ("summed", "clipped")}
+    log(f"  (b) one process, the batch's halves swapped, on {card}: the gradients rel. L2"
+        f" {order['summed_err']:.2e} (summed), {order['clipped_err']:.2e} (clipped) from the"
+        f" rows in order, params max |d| {order['param_err']:.3e}; the mesh's gradient bounds"
+        f" {bound['summed']:.2e}, {bound['clipped']:.2e}")
+    for label in ("train dp 2", "train model 2"):
+        g = got[label]
+        if not (g["loss_err"] <= MESH_LOSS_RTOL and g["param_err"] <= MESH_PARAM_ATOL
+                and g["state_err"] <= MESH_STATE_ATOL and g["norm_err"] <= MESH_GRAD_RTOL
+                and g["summed_err"] <= bound["summed"]
+                and g["clipped_err"] <= bound["clipped"]):
+            raise AssertionError(f"(b) {label}: {g}")
+        log(f"  (b) {label}, 16 rows a rank on {card} (shared): loss rel. {g['loss_err']:.2e}"
+            f" (bound {MESH_LOSS_RTOL}); the gradient summed over 'data' rel. L2"
+            f" {g['summed_err']:.2e}, the clipped one {g['clipped_err']:.2e} (bounds above),"
+            f" the norm after the clip {g['grad_norm']:.6f} rel. {g['norm_err']:.2e} (bound"
+            f" {MESH_GRAD_RTOL}); params max |d| {g['param_err']:.3e} (bound"
+            f" {MESH_PARAM_ATOL}), BN state {g['state_err']:.3e} (bound {MESH_STATE_ATOL});"
+            f" its one step {g['step_s'] * 1e3:.1f} ms (the first in its process), the gradient"
+            f" sum over gloo {g['grad_sum'][0]:.2f} ms for {g['grad_sum'][1]} bytes")
+    err, bad = got["eval dp 2"]
+    log(f"  (b) eval dp 2 (kernels, calibrated int8 trunk, bf16) on {card} (shared): max |dprob|"
+        f" {err:.3e} against one process (bound {PROB_ATOL}), {bad} argmax changes where the"
+        f" margin exceeds {ARGMAX_MARGIN}; both ranks' launches {launches}")
+    if err > PROB_ATOL or bad:
+        raise AssertionError("(b): the data-parallel eval step does not match one process")
+    for name in ("film_reencode", "attn_tail", "int8_matmul_fused"):
+        if launches[name] < 1:
+            raise AssertionError(f"(b): {name} was not launched on the mesh")
+    launches = mesh_served_model_parallel(torch.device("cuda"), card)
+    total = {k: total[k] + launches[k] for k in total}
+    log(f"  (b) in {time.perf_counter() - t0:.1f} s")
+
+    # (c) the daemon on a one-device mesh
+    vocab = load_json(os.path.join(data, "vocab.json"))
+    launches = mesh_daemon(card, data, ckpt, vocab)
+    total = {k: total[k] + launches[k] for k in total}
+    log(f"  mesh phase on {card} in {time.perf_counter() - t_phase:.1f} s; launches {total}")
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -3454,6 +3833,9 @@ def main():
             launches[name] += n
         log("phase daemon")
         for name, n in daemon(card, tmp, data, os.path.join(tmp, "e0_film.npz")).items():
+            launches[name] += n
+        log("phase mesh")
+        for name, n in mesh(card, tmp, data, os.path.join(tmp, "e0_film.npz")).items():
             launches[name] += n
 
     log("phase stem")

@@ -190,10 +190,26 @@ def test_vnr_feature_payloads_read_bit_for_bit(payload, ml_dtype, torch_dtype, t
 
 
 def test_vnr_refuses_row_slices(packed, tmp_path):
+    """A row slice outside the batch is refused; one inside decodes exactly
+    its rows of the global batches (the JAX loader's row_slice), in test mode
+    with the padded last batch's valid count cut to the slice."""
     path = str(tmp_path / "all.vnr")
     vnr.pack_dataset(packed, path, compress="zlib")
-    with pytest.raises(NotImplementedError, match="ROADMAP: multi-GPU"):
-        vnr.VNRBatchLoader(path, 2, row_slice=(0, 1))
+    for bad in ((0, 3), (2, 1), (-1, 1), (0, 0)):
+        with pytest.raises(ValueError, match="row_slice"):
+            vnr.VNRBatchLoader(path, 2, row_slice=bad)
+    args = dict(shuffle=True, seed=3, mode="test", bucket_by_length=True, frame_buckets=True)
+    whole = list(vnr.VNRBatchLoader(path, 3, **args).epoch(1))
+    want = list(jvnr.VNRBatchLoader(path, 3, row_slice=(1, 2), **args).epoch(1))
+    got = list(vnr.VNRBatchLoader(path, 3, row_slice=(1, 2), **args).epoch(1))
+    assert len(got) == len(whole) == len(want)
+    for g, w, a in zip(got, want, whole):
+        assert int(g["num_valid"]) == int(w["num_valid"]) == \
+            int(np.clip(int(a["num_valid"]) - 1, 0, 2))
+        for k in ("video", "v_len", "question", "q_len", "label", "q_id"):
+            np.testing.assert_array_equal(g[k], w[k])
+            n = int(g["num_valid"])
+            np.testing.assert_array_equal(g[k][:n], a[k][1:1 + n])
 
 
 def test_a_failed_native_build_raises(tmp_path, monkeypatch):

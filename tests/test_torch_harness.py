@@ -395,23 +395,40 @@ def test_mac_learning_rate_schedule_through_run_training(tiny_dir, monkeypatch,
     assert seen == [1e-4, 1e-5, 1e-4]
 
 
+# The mesh flags run (tests/test_torch_cli_dp.py); these cases are the
+# combinations that cannot (the batch or the devices do not split) or would
+# be silently ignored (a process training alone), each refused before any
+# data is read.
+_MESH_REFUSALS = {
+    "divide_data": "must divide by the 'data' mesh axis",
+    "divide_mp": "does not divide by --model_parallel",
+    "divide_procs": "does not divide by --num_processes",
+    "no_mesh_mp": "--model_parallel 2 needs --mesh_devices",
+    "no_mesh_dist": "--distributed true needs --mesh_devices",
+    "no_dist": "read only with --distributed",
+}
+
+
 @pytest.mark.parametrize("main, argv, item", [
     (q_and_v_eval.main, ["--model", "film_attn_pt", "--feature_cache", "true",
                          "--int8_stem", "true"], "mutually exclusive"),
-    (q_and_v_test.main, ["--model", "concat3d", "--mesh_devices", "2"], "multi-GPU"),
+    (q_and_v_test.main, ["--model", "concat3d", "--mesh_devices", "3"], "divide_data"),
     (q_and_v_eval.main, ["--model", "film_attn_pt", "--int8_trunk", "true",
-                         "--mesh_devices", "2"], "multi-GPU"),
-    (q_and_v_eval.main, ["--model", "film_attn_pt", "--mesh_devices", "2"], "multi-GPU"),
-    (q_and_v_eval.main, ["--model", "film_attn_pt", "--model_parallel", "2"], "multi-GPU"),
-    (q_and_v_eval.main, ["--model", "film_attn_pt", "--distributed", "true"], "multi-GPU"),
-    (q_and_v_eval.main, ["--model", "film_attn_pt", "--num_processes", "2"], "multi-GPU"),
-    (q_and_v_eval.main, ["--model", "film_gp_pt", "--distributed", "true"], "multi-GPU"),
-    (v_only_test.main, ["--model", "cnn3d", "--model_parallel", "2"], "multi-GPU"),
-    (q_only_test.main, ["--model", "bow", "--process_id", "1"], "multi-GPU"),
-    (q_only_eval.main, ["--model", "lstm", "--mesh_devices", "4"], "multi-GPU"),
+                         "--mesh_devices", "2", "--batch_size", "3"], "divide_data"),
+    (q_and_v_eval.main, ["--model", "film_attn_pt", "--mesh_devices", "2",
+                         "--model_parallel", "3"], "divide_mp"),
+    (q_and_v_eval.main, ["--model", "film_attn_pt", "--model_parallel", "2"], "no_mesh_mp"),
+    (q_and_v_eval.main, ["--model", "film_attn_pt", "--distributed", "true"], "no_mesh_dist"),
+    (q_and_v_eval.main, ["--model", "film_attn_pt", "--num_processes", "2"], "no_dist"),
+    (q_and_v_eval.main, ["--model", "film_gp_pt", "--distributed", "true", "--mesh_devices",
+                         "2", "--num_processes", "4"], "divide_procs"),
+    (v_only_test.main, ["--model", "cnn3d", "--model_parallel", "2"], "no_mesh_mp"),
+    (q_only_test.main, ["--model", "bow", "--process_id", "1"], "no_dist"),
+    (q_only_eval.main, ["--model", "lstm", "--mesh_devices", "3"], "divide_data"),
     (q_and_v_eval.main, ["--model", "film_attn_pt", "--jax_cache_dir", "/tmp/x"], "XLA"),
-], ids=lambda v: "A8" if v == "multi-GPU" else None)   # the ids the cases had as item A8
+], ids=lambda v: "A8" if isinstance(v, str) and v in _MESH_REFUSALS else None)   # the ids the cases had as item A8
 def test_refused_flags_exit(main, argv, item, tmp_path):
+    item = re.escape(_MESH_REFUSALS[item]) if item in _MESH_REFUSALS else item
     with pytest.raises(SystemExit, match=item):
         main(argv + ["--device", "cpu", "--data_dir", str(tmp_path / "absent")])
 

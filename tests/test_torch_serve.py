@@ -514,13 +514,22 @@ def test_stale_or_missing_cache_is_refused(data):
         serve.InferenceEngine.from_args(_port_args(data, "--model", "v_only_cnn2d_lstm"))
 
 
+# Mesh serving runs (tests/test_torch_serve_mesh.py); these are the flag
+# combinations it refuses: a micro-batch that does not split over 'data',
+# --model_parallel without a mesh, and --distributed (serving is single-process).
+_MESH_REFUSALS = {"max_batch": "--max_batch 4 must divide by the 'data' mesh axis",
+                  "no_mesh": "--model_parallel 2 needs --mesh_devices",
+                  "single": "mesh serving is single-process"}
+
+
 @pytest.mark.parametrize("extra, item", [
-    (["--mesh_devices", "2"], "multi-GPU"),
-    (["--model_parallel", "2"], "multi-GPU"),
-    (["--model", "v_only_cnn3d", "--mesh_devices", "2"], "multi-GPU"),
-    (["--q_encoder", "bow", "--model_parallel", "2"], "multi-GPU"),
-], ids=lambda v: "A8" if v == "multi-GPU" else None)   # the ids the cases had as item A8
+    (["--mesh_devices", "3"], "max_batch"),
+    (["--model_parallel", "2"], "no_mesh"),
+    (["--model", "v_only_cnn3d", "--mesh_devices", "2", "--distributed", "true"], "single"),
+    (["--q_encoder", "bow", "--model_parallel", "2"], "no_mesh"),
+], ids=lambda v: "A8" if isinstance(v, str) and v in _MESH_REFUSALS else None)   # the ids the cases had as item A8
 def test_unported_flags_exit_naming_their_item(data, extra, item):
+    item = re.escape(_MESH_REFUSALS[item])
     with pytest.raises(SystemExit, match=item):
         serve.build_server(_port_args(data, *extra))
 

@@ -30,18 +30,33 @@ It keeps the JAX harness's behaviour:
   dumps of targets, predictions and question types beside the checkpoint
   (``cli/results_analysis.py`` reads them).
 
-Every zoo model runs. Flags the port does not run yet (multi-GPU) stop the
-run with a ``SystemExit`` that names the ROADMAP item, whenever they are set
-away from their defaults. Entry points run on the card
-(``--device cuda``, the default) unless ``--device cpu`` is given.
+Every zoo model runs. ``--mesh_devices N [--model_parallel M]`` runs an
+entry point on a mesh of N devices, one process each (``parallel/``): the
+caller's process is local rank 0 and starts N - 1 more with the ``spawn``
+start method (``on_mesh``); with ``--distributed true`` each of
+``--num_processes`` launched processes (``--process_id``, rendezvous at
+``--coordinator_address``, or torchrun's environment) starts its N /
+num_processes local ranks. Each rank runs the same entry point on its rows
+of every global batch (the native loader decodes only those,
+``row_slice``; the Python loader's batch is cut to them,
+``host_localize_batch``), the widest projections' rows split over 'model';
+the epoch's predictions are gathered before the metrics, one-time files
+(packing, feature extraction) are written by rank 0 while the others wait
+on them, and rank 0 writes the checkpoints (sharded leaves all-gathered)
+and the metrics; ``run_training`` returns rank 0's params, whole. Flag
+combinations that would silently train alone or cannot split the batch exit
+with a ``SystemExit``. Entry points run on the card (``--device cuda``, the
+default) unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import pprint as pp
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -50,9 +65,12 @@ from videonavqa_tpu_torch.data import BatchLoader, DataPaths, VNQADataset, load_
 from videonavqa_tpu_torch.data.prefetch import device_prefetch, host_prefetch
 from videonavqa_tpu_torch.models import MODEL_REGISTRY, ModelConfig, get_model
 from videonavqa_tpu_torch.models.base import DTYPES
+from videonavqa_tpu_torch.parallel import collectives, launch, multihost
+from videonavqa_tpu_torch.parallel.mesh import (
+    local_devices, make_mesh, param_shardings, put_global, replicate)
 from videonavqa_tpu_torch.train import metrics as M
 from videonavqa_tpu_torch.train.step import (
-    make_eval_step, make_optimizer, make_train_step, set_learning_rate,
+    make_eval_step, make_optimizer, make_train_step, set_learning_rate, tree_items,
 )
 from videonavqa_tpu_torch.utils import checkpoint as ckpt
 from videonavqa_tpu_torch.utils import constants as C
@@ -121,12 +139,16 @@ def add_common_args(parser: argparse.ArgumentParser):
                         help="draw the frame subsampling anew at val/test time, as the "
                              "reference does (nondeterministic metrics)")
     parser.add_argument("--mesh_devices", type=int, default=0,
-                        help="refused unless 0: multi-GPU is not ported yet (ROADMAP: multi-GPU)")
+                        help="devices of the mesh, one process each (0: no mesh); the batch "
+                             "shards over 'data'")
     parser.add_argument("--model_parallel", type=int, default=1,
-                        help="refused unless 1 (ROADMAP: multi-GPU)")
+                        help="the mesh's 'model' axis: the widest projections' rows split "
+                             "over this many devices")
     parser.add_argument("--distributed", type=_true, default=False,
-                        help="refused unless false (ROADMAP: multi-GPU)")
-    parser.add_argument("--coordinator_address", type=str, default=None)
+                        help="this is one of --num_processes launched processes, each "
+                             "owning --mesh_devices / --num_processes devices")
+    parser.add_argument("--coordinator_address", type=str, default=None,
+                        help="with --distributed: host:port of process 0's rendezvous")
     parser.add_argument("--num_processes", type=int, default=None)
     parser.add_argument("--process_id", type=int, default=None)
     return parser
@@ -196,30 +218,57 @@ def build_q_and_v_parser():
     return parser
 
 
-# (flag, its default, the ROADMAP item that ports it, by its title)
-_REFUSED = (
-    ("mesh_devices", 0, "multi-GPU"),
-    ("model_parallel", 1, "multi-GPU"),
-    ("distributed", False, "multi-GPU"),
-    ("coordinator_address", None, "multi-GPU"),
-    ("num_processes", None, "multi-GPU"),
-    ("process_id", None, "multi-GPU"),
-)
-
-
-def refuse_unported(args, model_name):
-    """SystemExit for a model the port does not know or a flag value it does
-    not run yet."""
+def refuse_unported(args, model_name, batch_flag="batch_size"):
+    """SystemExit for a model the port does not know, a flag it has no use
+    for, or mesh flags that cannot run (``check_mesh_flags``)."""
     if model_name not in MODEL_REGISTRY:
         raise SystemExit(f"--model {model_name}: unknown; the port trains "
                          f"{sorted(MODEL_REGISTRY)}")
-    for flag, default, item in _REFUSED:
-        value = getattr(args, flag, default)
-        if value != default:
-            raise SystemExit(f"--{flag} {value}: not ported yet (ROADMAP: {item}); "
-                             f"leave it at its default, {default}")
     if getattr(args, "jax_cache_dir", None):
         raise SystemExit("--jax_cache_dir: the port compiles no XLA programs; drop the flag")
+    check_mesh_flags(args, batch_flag)
+
+
+def check_mesh_flags(args, batch_flag="batch_size"):
+    """SystemExit where the mesh flags cannot run as asked: the batch
+    (``--{batch_flag}``) must divide by the 'data' axis and the processes,
+    the devices by the 'model' axis and the processes; and where they would
+    be silently ignored: --model_parallel or --distributed without
+    --mesh_devices, the address flags without --distributed. A
+    --distributed that resolves to one process raises in
+    ``multihost.initialize``."""
+    n = getattr(args, "mesh_devices", 0) or 0
+    mp = getattr(args, "model_parallel", 1) or 1
+    dist_on = getattr(args, "distributed", False)
+    if n < 0 or mp < 1:
+        raise SystemExit(f"--mesh_devices {n} / --model_parallel {mp}: out of range")
+    if not n:
+        if mp != 1:
+            raise SystemExit(f"--model_parallel {mp} needs --mesh_devices: without a mesh "
+                             "there is no 'model' axis to split over")
+        if dist_on:
+            raise SystemExit("--distributed true needs --mesh_devices: without a mesh each "
+                             "process would train alone")
+    for flag in ("coordinator_address", "num_processes", "process_id"):
+        if getattr(args, flag, None) is not None and not dist_on:
+            raise SystemExit(f"--{flag} is read only with --distributed true; without it "
+                             "this process would train alone")
+    if not n:
+        return
+    if n % mp:
+        raise SystemExit(f"--mesh_devices {n} does not divide by --model_parallel {mp}")
+    procs = getattr(args, "num_processes", None) or 1
+    if n % procs:
+        raise SystemExit(f"--mesh_devices {n} does not divide by --num_processes {procs}: "
+                         "each process owns as many devices")
+    batch = getattr(args, batch_flag, None)
+    if batch is not None:
+        if batch % (n // mp):
+            raise SystemExit(f"--{batch_flag} {batch} must divide by the 'data' mesh axis "
+                             f"({n // mp})")
+        if batch % procs:
+            raise SystemExit(f"--{batch_flag} {batch} must divide by the process count "
+                             f"({procs})")
 
 
 def cfg_from_args(args, model_name):
@@ -318,6 +367,20 @@ def calibration_batch(loader):
 _FEATURE_BITS = {np.dtype(np.uint16): torch.bfloat16, np.dtype(np.uint8): torch.float8_e4m3fn}
 
 
+def host_localize_batch(np_batch, global_batch_size, rank=None):
+    """A whole global numpy batch cut to ``rank``'s (default: the active
+    rank's) rows (the Python loader's path under a mesh; the native loader
+    decodes only its rows, ``row_slice``). ``num_valid`` becomes this rank's;
+    leaves without the batch's rows pass whole."""
+    start, per = multihost.host_batch_slice(global_batch_size, rank)
+    g_valid = int(np_batch["num_valid"])
+    out = {k: (v[start:start + per]
+               if np.ndim(v) >= 1 and np.shape(v)[0] == global_batch_size else v)
+           for k, v in np_batch.items() if k != "num_valid"}
+    out["num_valid"] = np.int32(np.clip(g_valid - start, 0, per))
+    return out
+
+
 def prepare_batch(batch):
     """A numpy batch -> (dict of CPU tensors, num_valid): ``q_id`` dropped,
     a ``valid`` mask added where the batch holds padding rows; videos stay
@@ -342,14 +405,171 @@ def batch_seed(seed, epoch, index, train):
     return int(np.random.SeedSequence(words).generate_state(1)[0])
 
 
+# --- the mesh ------------------------------------------------------------------
+
+# rank 0 waits this long for the other local ranks once it has finished
+JOIN_TIMEOUT_S = 300
+
+
+def on_mesh(fn, args, *a, **k):
+    """``fn(args, *a, **k)`` on the mesh ``args`` ask for -> rank 0's result.
+
+    Without --mesh_devices, or inside a rank already, it is the plain call.
+    Otherwise this process becomes local rank 0 of its N / num_processes
+    (without --distributed: N) and starts the others with the ``spawn``
+    start method; each joins the process group (NCCL on the card, gloo on
+    the CPU; rendezvous at --coordinator_address, else a free local port),
+    builds the mesh and runs ``fn``. A rank that raises or dies fails the
+    run; the others are killed, and the process group is left in every
+    case."""
+    if not (getattr(args, "mesh_devices", 0) or 0) or collectives.current() is not None:
+        return fn(args, *a, **k)
+    check_mesh_flags(args)
+    plan = _mesh_plan(args)
+    children = None
+    if plan.local > 1:
+        children = launch.spawn_ranks(_mesh_rank, (plan, fn, args, a, k), nprocs=plan.local - 1)
+    try:
+        out = _mesh_rank(0, plan, fn, args, a, k)
+    except BaseException:
+        if children is not None:
+            launch.kill(children)
+        raise
+    if children is not None:
+        launch.join(children, JOIN_TIMEOUT_S)
+    return out
+
+
+def _mesh_plan(args):
+    n, mp = args.mesh_devices, args.model_parallel or 1
+    device_type = torch.device(args.device).type
+    if getattr(args, "distributed", False):
+        addr, procs, pid = multihost.resolve(args.coordinator_address, args.num_processes,
+                                             args.process_id)
+        if addr is None and procs is None and pid is None:
+            multihost.initialize(expect_multiprocess=True)   # raises: one process
+        if addr is None or procs is None or pid is None:
+            raise SystemExit("--distributed needs --coordinator_address, --num_processes and "
+                             "--process_id together (or torchrun's environment)")
+        if n % procs:
+            raise SystemExit(f"--mesh_devices {n} does not divide by --num_processes {procs}")
+        local = n // procs
+    else:
+        addr, pid, local = f"127.0.0.1:{launch.free_port()}", 0, n
+    have = len(local_devices(device_type))
+    if device_type == "cuda" and local > have:
+        raise ValueError(f"requested a {local}-device mesh on this host but only {have} "
+                         "device(s) exist")
+    return SimpleNamespace(address=addr, world=n, mp=mp, local=local, first=pid * local,
+                           device_type=device_type)
+
+
+def _mesh_rank(local_rank, plan, fn, args, a, k):
+    device = torch.device("cuda", local_rank) if plan.device_type == "cuda" else \
+        torch.device("cpu")
+    threads = launch.cpu_threads() if device.type == "cpu" else contextlib.nullcontext()
+    with threads:
+        multihost.initialize(plan.address, plan.world, plan.first + local_rank,
+                             expect_multiprocess=bool(getattr(args, "distributed", False)),
+                             device=device)
+        try:
+            collectives.set_process_rank(make_mesh(plan.world, plan.mp).local)
+            return fn(args, *a, **k)
+        finally:
+            collectives.set_process_rank(None)
+            multihost.shutdown()
+
+
+def _gather_batches(rank, *lists):
+    """Each list (one array per batch, this rank's rows) -> one array of the
+    global batches' rows in their order: every data rank's lists gathered
+    and each batch's parts put back in data-index order."""
+    if rank is None or rank.shape["data"] == 1:
+        return tuple(np.concatenate(x) if x else np.array([]) for x in lists)
+    parts = rank.data.all_gather_object(lists)
+    return tuple(
+        np.concatenate([np.concatenate([p[j][i] for p in parts]) for i in range(len(x))])
+        if x else np.array([]) for j, x in enumerate(lists))
+
+
+def _failure_sentinel(path):
+    return path + ".failed"
+
+
+# sentinels older than this process are leftovers of an earlier failed run
+_RUN_START = time.time()
+
+
+def _sentinel_is_live(path):
+    try:
+        return os.path.getmtime(path) >= _RUN_START - 120.0
+    except OSError:
+        return False
+
+
+class _artifact_guard:
+    """Rank 0's one-time file writes: on an error a ``<path>.failed``
+    sentinel beside each file makes the waiting ranks fail at once; stale
+    sentinels go on entry."""
+
+    def __init__(self, paths):
+        self.paths = list(paths)
+        for p in self.paths:
+            if os.path.exists(_failure_sentinel(p)):
+                os.remove(_failure_sentinel(p))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc_type is not None:
+            for p in self.paths:
+                try:
+                    with open(_failure_sentinel(p), "w") as f:
+                        f.write(f"{exc_type.__name__}: {exc}\n")
+                except OSError:
+                    pass
+        return False
+
+
+def _await_artifacts(paths, timeout=3600, ready=None):
+    """The other ranks' wait for rank 0's one-time files: polling the shared
+    filesystem (a collective barrier would time out while rank 0 spends
+    minutes extracting). Writers replace atomically, so a file that exists
+    is whole; ``ready`` overrides that test; a ``.failed`` sentinel ends the
+    wait with an error."""
+    ready = ready or os.path.exists
+    t0 = time.time()
+    for p in paths:
+        while not ready(p):
+            if _sentinel_is_live(_failure_sentinel(p)):
+                with open(_failure_sentinel(p)) as f:
+                    reason = f.read().strip()
+                raise RuntimeError(f"rank 0 failed while writing {p}: {reason}")
+            if time.time() - t0 > timeout:
+                raise TimeoutError(f"waiting for rank 0 to write {p}")
+            time.sleep(0.5)
+
+
 class Harness:
-    """A run's set-up: the refusals, the device, the dataset's splits, the
-    model's spec and config, the frozen stem, the metrics stream and the
-    generator that every batch reseeds."""
+    """A run's set-up: the refusals, the device (under a mesh, this rank's),
+    the dataset's splits, the model's spec and config, the frozen stem, the
+    metrics stream and the generator that every batch reseeds."""
 
     def __init__(self, args, model_name, *, q_only=False, v_only=False):
         refuse_unported(args, model_name)
-        self.device = resolve_device(args.device)
+        self.rank = collectives.current()
+        if self.rank is not None and self.rank.world.size > 1 and \
+                getattr(args, "int8_stem", False):
+            raise SystemExit("--int8_stem calibration is not supported across processes; use "
+                             "the bf16 stem or --feature_cache")
+        self.device = self.rank.device if self.rank is not None else resolve_device(args.device)
+        # rank 0 writes the files: checkpoints, metrics, dumps, one-time artifacts
+        self.writer = self.rank is None or self.rank.rank == 0
+        # a rank's loaders decode only its rows of each global batch
+        self.row_slice = None
+        if self.rank is not None and self.rank.shape["data"] > 1:
+            self.row_slice = multihost.host_batch_slice(args.batch_size, self.rank)
         self.args = args
         self.paths = DataPaths(args.data_dir)
         self.spec = get_model(model_name)
@@ -372,7 +592,7 @@ class Harness:
         # every batch reseeds it (batch_seed); the eval step draws from it too
         self.generator = torch.Generator(device=self.device)
         self.metrics = MetricsLogger(
-            getattr(args, "metrics_file", None),
+            getattr(args, "metrics_file", None) if self.writer else None,
             run_meta={"model": model_name, "args": vars(args)})
 
     def dataset(self, part, *, q_metadata=False, deterministic=False):
@@ -386,6 +606,33 @@ class Harness:
     def init_model(self):
         return self.spec.init(torch.Generator().manual_seed(self.args.seed), self.cfg,
                               self.device)
+
+    def shard_model(self, params, state, optimizer=None):
+        """Place the train state on the mesh (as it is without one): this
+        rank's rows of the 'model'-sharded leaves (``param_shardings``), the
+        rest whole; the BN state broadcast from rank 0; and, given
+        ``optimizer``, a new Adam over the placed leaves with its moments
+        cut alike and its step and hyperparameters kept. -> (params, state,
+        optimizer)."""
+        if self.rank is None:
+            return params, state, optimizer
+        specs = param_shardings(params, self.rank)
+        placed = put_global(params, specs, self.rank)
+        state = replicate(state, self.rank)
+        if optimizer is None:
+            return placed, state, None
+        group = optimizer.param_groups[0]
+        new = make_optimizer(placed, group["lr"])
+        new.param_groups[0].update(betas=group["betas"], eps=group["eps"])
+        flat_specs = dict(tree_items(specs))
+        for (path, old), (_, p) in zip(tree_items(params), tree_items(placed)):
+            st = optimizer.state.get(old)
+            if st:
+                moments = put_global({k: st[k] for k in ("exp_avg", "exp_avg_sq")},
+                                     {k: flat_specs[path] for k in ("exp_avg", "exp_avg_sq")},
+                                     self.rank)
+                new.state[p] = {"step": st["step"].clone(), **moments}
+        return placed, state, new
 
     def make_steps(self, optimizer, *, reduction=None, clip_value=None):
         """(train step, eval step) with the harness's class weights, stem and
@@ -410,6 +657,9 @@ class Harness:
         y_pred, y_target = [], []
 
         def prepare(np_batch):
+            if self.row_slice is not None and len(np_batch["label"]) == self.args.batch_size:
+                # the Python loader's global batch -> this rank's rows
+                np_batch = host_localize_batch(np_batch, self.args.batch_size, self.rank)
             labels_np = np_batch["label"]
             batch, num_valid = prepare_batch(np_batch)
             return batch, num_valid, labels_np
@@ -437,7 +687,8 @@ class Harness:
                 drain(pending)
             pending = (metrics, num_valid, labels_np)
             if train and (i + 1) % self.args.stats_after_every == 0:
-                denom = max(num_examples, 1)
+                # the loss is the global batch's; the rows counted, this rank's
+                denom = max(num_examples * (self.rank.shape["data"] if self.rank else 1), 1)
                 print("Average loss after %d iterations in epoch %d: %.6f"
                       % (i + 1, epoch + 1, total_loss / denom))
                 self.metrics.log("train_progress", epoch=epoch, iteration=i + 1,
@@ -445,8 +696,9 @@ class Harness:
         if pending is not None:
             drain(pending)
 
-        y_pred = np.concatenate(y_pred) if y_pred else np.array([])
-        y_target = np.concatenate(y_target) if y_target else np.array([])
+        # every data rank's rows, in the global batches' order
+        y_pred, y_target = _gather_batches(self.rank, y_pred, y_target)
+        hit, num_examples = int(np.sum(y_pred == y_target)), int(len(y_pred))
         f1_w = M.f1_score(y_target, y_pred, average="weighted")
         f1_micro = M.f1_score(y_target, y_pred, average="micro")
         summary = {
@@ -472,28 +724,54 @@ class Harness:
 
 def _vnr_loaders(args, h, vnr_kw):
     """The train and val .vnr loaders, each split packed at first use."""
-    from videonavqa_tpu_torch.data.vnr import VNRBatchLoader, ensure_built, pack_dataset
+    from videonavqa_tpu_torch.data.vnr import VNRBatchLoader, ensure_built
 
     ensure_built()
     loaders = {}
     for part, det in (("train", False), ("val", not args.stochastic_eval)):
-        path = os.path.join(args.data_dir, f"{part}.vnr")
-        if not os.path.exists(path):
-            print(f"=> Packing {part} split into {path}")
-            pack_dataset(args.data_dir, path, h.split[part])
+        path = _packed(args, h, part)
         loaders[part] = VNRBatchLoader(path, args.batch_size, shuffle=(part == "train"),
-                                       mode=part, deterministic=det, **vnr_kw)
+                                       mode=part, deterministic=det, row_slice=h.row_slice,
+                                       **vnr_kw)
     return loaders["train"], loaders["val"]
 
 
-def _extract_features_once(args, h, splits):
-    """{split: feature-cache file}, extracted where missing or stale; the stem
-    loads only then, and is dropped afterwards."""
-    from videonavqa_tpu_torch.cli.extract_features import ensure_features, features_needed
+def _packed(args, h, part):
+    """``{part}.vnr`` in the data dir, packed at first use by rank 0 while
+    the other ranks wait for it."""
+    from videonavqa_tpu_torch.data.vnr import pack_dataset
 
+    path = os.path.join(args.data_dir, f"{part}.vnr")
+    if h.writer:
+        if not os.path.exists(path):
+            print(f"=> Packing {part} split into {path}")
+            with _artifact_guard([path]):
+                pack_dataset(args.data_dir, path, h.split[part])
+    else:
+        _await_artifacts([path])
+    return path
+
+
+def _extract_features_once(args, h, splits):
+    """{split: feature-cache file}, extracted where missing or stale (under a
+    mesh by rank 0, while the others wait for the files and the current
+    stem's fingerprint in them); the stem loads only then, and is dropped
+    afterwards."""
+    from videonavqa_tpu_torch.cli.extract_features import (
+        ensure_features, feature_file, features_needed, stem_fingerprint)
+    from videonavqa_tpu_torch.data.vnr import read_fingerprint
+
+    dtype = getattr(args, "feature_dtype", "bfloat16") or "bfloat16"
+    if not h.writer:
+        files = {s: feature_file(args.data_dir, s, dtype) for s in splits}
+        want = stem_fingerprint(args, h.paths)
+        _await_artifacts(files.values(),
+                         ready=lambda p: os.path.exists(p) and read_fingerprint(p) == want)
+        return files
     missing = features_needed(args, h.paths, splits, quiet=True)
     stem_fn = load_stem(args, h.paths, h.device) if missing else None
-    files = ensure_features(args, stem_fn, splits, h.split)
+    with _artifact_guard([feature_file(args.data_dir, s, dtype) for s in splits]):
+        files = ensure_features(args, stem_fn, splits, h.split)
     del stem_fn
     if h.device.type == "cuda":
         torch.cuda.empty_cache()
@@ -501,6 +779,13 @@ def _extract_features_once(args, h, splits):
 
 
 def run_training(args, model_name, *, q_only=False, v_only=False, clip_value=None):
+    """Train and validate -> (params, state) of rank 0 (whole, on its
+    device), on the mesh the flags ask for (``on_mesh``)."""
+    return on_mesh(_run_training, args, model_name, q_only=q_only, v_only=v_only,
+                   clip_value=clip_value)
+
+
+def _run_training(args, model_name, *, q_only=False, v_only=False, clip_value=None):
     if getattr(args, "feature_cache", False) and getattr(args, "int8_stem", False):
         raise SystemExit("--feature_cache and --int8_stem are mutually exclusive (the cache is "
                          "extracted with the bf16 stem)")
@@ -522,7 +807,8 @@ def run_training(args, model_name, *, q_only=False, v_only=False, clip_value=Non
 
         files = _extract_features_once(args, h, ("train", "val"))
         h.needs_stem = False
-        vnr_kw = dict(seed=args.seed, bucket_by_length=bucket, frame_buckets=fb_spec)
+        vnr_kw = dict(seed=args.seed, bucket_by_length=bucket, frame_buckets=fb_spec,
+                      row_slice=h.row_slice)
         train_loader = VNRBatchLoader(files["train"], args.batch_size, shuffle=True,
                                       mode="train", **vnr_kw)
         val_loader = VNRBatchLoader(files["val"], args.batch_size, shuffle=False, mode="val",
@@ -555,6 +841,7 @@ def run_training(args, model_name, *, q_only=False, v_only=False, clip_value=Non
     elif args.checkpoint_path:
         print("=> No checkpoint existent - will save the model here")
 
+    params, state, optimizer = h.shard_model(params, state, optimizer)
     train_step, eval_step = h.make_steps(optimizer, clip_value=clip_value)
     for epoch in range(start_epoch, start_epoch + args.num_epochs):
         if model_name == "mac":
@@ -580,28 +867,34 @@ def run_training(args, model_name, *, q_only=False, v_only=False, clip_value=Non
         h.print_val_summary(val_summary)
     ckpt.wait_for_pending_saves()
     h.metrics.close()
-    return params, state
+    return whole_params(h, params), state
+
+
+def whole_params(h, params):
+    """``params`` with every 'model'-sharded leaf gathered whole (a
+    collective: every rank calls it)."""
+    if h.rank is None or h.rank.shape["model"] == 1:
+        return params
+    from videonavqa_tpu_torch.utils.device import tree_map
+
+    return tree_map(lambda t: collectives.full_leaf(t).detach(), params)
 
 
 def _test_loader(args, h, q_only):
     """The test split's loader, in order and unbucketed, as the JAX harness
     reads it: the feature cache's (extracted where missing or stale), the
     packed ``test.vnr`` (packed at first use), or the Python loader."""
-    from videonavqa_tpu_torch.data.vnr import VNRBatchLoader, ensure_built, pack_dataset
+    from videonavqa_tpu_torch.data.vnr import VNRBatchLoader, ensure_built
 
     vnr_kw = dict(shuffle=False, mode="test", deterministic=not args.stochastic_eval,
-                  seed=args.seed)
+                  seed=args.seed, row_slice=h.row_slice)
     if getattr(args, "feature_cache", False) and h.needs_stem and not q_only:
         files = _extract_features_once(args, h, ("test",))
         h.needs_stem, h.stem_fn = False, None
         return VNRBatchLoader(files["test"], args.batch_size, **vnr_kw)
     if getattr(args, "use_vnr", False) and not q_only:
         ensure_built()
-        path = os.path.join(args.data_dir, "test.vnr")
-        if not os.path.exists(path):
-            print(f"=> Packing test split into {path}")
-            pack_dataset(args.data_dir, path, h.split["test"])
-        return VNRBatchLoader(path, args.batch_size, **vnr_kw)
+        return VNRBatchLoader(_packed(args, h, "test"), args.batch_size, **vnr_kw)
     test_ds = h.dataset("test", q_metadata=True, deterministic=True)
     return BatchLoader(test_ds, args.batch_size, shuffle=False, mode="test",
                        num_workers=args.num_workers, seed=args.seed)
@@ -612,7 +905,13 @@ def run_test(args, model_name, *, q_only=False, v_only=False):
     the per-class accuracies and the "Testing" line, and writes the targets,
     predictions and question types of the real rows as ``t_``, ``p_`` and
     ``q_<checkpoint name>.npy`` beside the checkpoint. Each batch's generator
-    is seeded from ``--seed`` + 2 and the batch's index."""
+    is seeded from ``--seed`` + 2 and the batch's index. Under a mesh
+    (``on_mesh``) every rank's rows are gathered and rank 0 writes the
+    dumps; -> rank 0's summary."""
+    return on_mesh(_run_test, args, model_name, q_only=q_only, v_only=v_only)
+
+
+def _run_test(args, model_name, *, q_only=False, v_only=False):
     if getattr(args, "feature_cache", False) and getattr(args, "int8_stem", False):
         raise SystemExit("--feature_cache and --int8_stem are mutually exclusive (the cache is "
                          "extracted with the bf16 stem)")
@@ -626,6 +925,7 @@ def run_test(args, model_name, *, q_only=False, v_only=False):
                                     params=params, state=state)
     if "val_acc" in meta:
         print("=> Restored checkpoint with val acc %s" % meta["val_acc"])
+    params, state, _ = h.shard_model(params, state)
     if h.needs_stem and h.stem_fn is None:   # int8: calibrate on one batch
         h.stem_fn = load_stem(args, h.paths, h.device,
                               calibration_video=calibration_batch(loader))
@@ -635,6 +935,8 @@ def run_test(args, model_name, *, q_only=False, v_only=False):
     y_pred, y_target, qs = [], [], []
     total_loss, hit, num_examples = 0.0, 0, 0
     for i, np_batch in enumerate(loader.epoch(0)):
+        if h.row_slice is not None and len(np_batch["label"]) == args.batch_size:
+            np_batch = host_localize_batch(np_batch, args.batch_size, h.rank)
         labels_np, q_id = np_batch["label"], np_batch.get("q_id")
         batch, num_valid = prepare_batch(np_batch)
         h.generator.manual_seed(batch_seed(args.seed + 2, 0, i, False))
@@ -650,9 +952,13 @@ def run_test(args, model_name, *, q_only=False, v_only=False):
         if q_id is not None:
             qs.append(q_id[:num_valid])
 
-    y_pred = np.concatenate(y_pred) if y_pred else np.array([], np.int64)
-    y_target = np.concatenate(y_target) if y_target else np.array([], np.int64)
-    qs = np.concatenate(qs) if qs else np.array([])
+    if h.rank is None:
+        y_pred = np.concatenate(y_pred) if y_pred else np.array([], np.int64)
+        y_target = np.concatenate(y_target) if y_target else np.array([], np.int64)
+        qs = np.concatenate(qs) if qs else np.array([])
+    else:   # every data rank's rows, in the global batches' order
+        y_pred, y_target, qs = _gather_batches(h.rank, y_pred, y_target, qs)
+        hit, num_examples = int(np.sum(y_pred == y_target)), int(len(y_pred))
     summary = {"loss": total_loss / max(num_examples, 1), "hit": hit,
                "num_examples": num_examples,
                "f1_w": M.f1_score(y_target, y_pred, average="weighted"),
@@ -660,10 +966,11 @@ def run_test(args, model_name, *, q_only=False, v_only=False):
                "y_pred": y_pred, "y_target": y_target}
     h.print_val_summary(summary, header="Testing")
 
-    base = os.path.basename(args.checkpoint_path)
-    out_dir = os.path.dirname(args.checkpoint_path) or "."
-    np.save(os.path.join(out_dir, "t_" + base), y_target)
-    np.save(os.path.join(out_dir, "p_" + base), y_pred)
-    np.save(os.path.join(out_dir, "q_" + base), qs)
+    if h.writer:
+        base = os.path.basename(args.checkpoint_path)
+        out_dir = os.path.dirname(args.checkpoint_path) or "."
+        np.save(os.path.join(out_dir, "t_" + base), y_target)
+        np.save(os.path.join(out_dir, "p_" + base), y_pred)
+        np.save(os.path.join(out_dir, "q_" + base), qs)
     h.metrics.close()
     return summary

@@ -48,6 +48,9 @@ def main(argv=None):
     if not args.checkpoint_path or not os.path.exists(args.checkpoint_path):
         raise SystemExit("--checkpoint_path is required for inference")
     refuse_unported(args, args.model)
+    if args.mesh_devices:
+        raise SystemExit("predict answers one question on one device; drop --mesh_devices "
+                         "(the daemon, cli/serve.py, serves on a mesh)")
     device = resolve_device(args.device)
 
     paths = DataPaths(args.data_dir)

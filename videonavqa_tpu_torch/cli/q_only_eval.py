@@ -2,12 +2,14 @@
 cli/q_only_eval.py): ``--model lstm`` or ``bow``.
 
 It validates every ``--stats_after_every`` epochs and keeps the checkpoint of
-the best validation accuracy (micro F1), the first validation always.
+the best validation accuracy (micro F1), the first validation always. Its
+loop runs on the mesh the flags ask for (``cli/common.py on_mesh``), the
+params placed on it before the first batch (``Harness.shard_model``).
 """
 
 import argparse
 
-from videonavqa_tpu_torch.cli.common import Harness, add_common_args
+from videonavqa_tpu_torch.cli.common import Harness, whole_params, add_common_args, on_mesh
 from videonavqa_tpu_torch.data import BatchLoader
 from videonavqa_tpu_torch.train.step import make_optimizer
 from videonavqa_tpu_torch.utils import checkpoint as ckpt
@@ -32,6 +34,10 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if not args.model:
         raise SystemExit("--model is required")
+    return on_mesh(_main, args)
+
+
+def _main(args):
     h = Harness(args, args.model, q_only=True)
     train_ds = h.dataset("train")
     val_ds = h.dataset("val", deterministic=True)
@@ -46,7 +52,8 @@ def main(argv=None):
                              num_workers=args.num_workers, seed=args.seed)
 
     params, state = h.init_model()
-    optimizer = make_optimizer(params, args.l_rate)
+    params, state, optimizer = h.shard_model(params, state,
+                                             make_optimizer(params, args.l_rate))
     # the question-only harness clips no gradient
     train_step, eval_step = h.make_steps(optimizer, reduction="mean")
 
@@ -61,12 +68,12 @@ def main(argv=None):
             print("Validation:\tAverage loss: {:.6f}, F1: w{:.4f}, micro{:.4f}".format(
                 vs["loss"], vs["f1_w"], vs["f1_micro"]))
             if vs["f1_micro"] > best_acc and args.checkpoint_path:
-                best_acc = vs["f1_micro"]
+                best_acc = vs["f1_micro"]   # global: the same on every rank
                 ckpt.save_checkpoint(
                     args.checkpoint_path, params=params, state=state, optimizer=optimizer,
                     meta={"epoch": epoch, "model": args.model, "val_acc": best_acc})
     h.metrics.close()
-    return params, state
+    return whole_params(h, params), state
 
 
 if __name__ == "__main__":

@@ -29,8 +29,12 @@ The paths and bodies are ``serve/http.py``'s. SIGTERM or SIGINT stops
 accepting connections, answers every accepted request and exits.
 ``--int8_stem true`` serves a stem model from video through the int8 stem,
 calibrated at start-up on one stored video (``--int8_stem_calibration_video``,
-else the alphabetically first under ``videos/``). Mesh serving
-(ROADMAP: multi-GPU) is not ported: its flags exit naming the item.
+else the alphabetically first under ``videos/``). ``--mesh_devices N
+[--model_parallel M]`` serves on N devices of this process: a replica on
+each 'data' device, the micro-batch's rows split over them (``--max_batch``
+must divide by the 'data' axis), the widest projections' rows split over a
+data row's 'model' devices (``serve/engine.py``); ``--distributed`` exits,
+as serving is single-process.
 """
 
 from __future__ import annotations

@@ -265,15 +265,21 @@ class VNRBatchLoader:
     val drop the last partial batch, test pads it; optional length-bucketed
     batches with frame trimming), over both payloads: u8 video files (batch
     key "video") and feature files (batch key "v_features", their bits).
+
+    ``row_slice=(start, size)``: a mesh rank's loader. Every rank composes
+    the same global batches (order, frame cap), and this one decodes only
+    rows [start, start + size) of each (``parallel/multihost.py
+    host_batch_slice``); ``num_valid`` is then this rank's.
     """
 
     def __init__(self, path, batch_size, *, shuffle=True, mode="train",
                  num_threads=0, seed=0, bucket_by_length=False,
                  frame_buckets=None, deterministic=False, row_slice=None):
         if row_slice is not None:
-            raise NotImplementedError(
-                "row_slice (each host decoding its rows of a batch) is multi-GPU "
-                "feeding, not ported yet (ROADMAP: multi-GPU)")
+            start, size = row_slice
+            if start < 0 or size < 1 or start + size > batch_size:
+                raise ValueError(f"row_slice {row_slice} is not within a batch of {batch_size}")
+        self.row_slice = row_slice
         self._lib = _load_lib()
         self._handle = self._lib.vnr_open(os.fsencode(path))
         if not self._handle:
@@ -344,8 +350,14 @@ class VNRBatchLoader:
         return q[0, :q_len[0]].astype(np.int64), int(label[0]), int(q_id[0])
 
     def _load(self, idxs, t_cap, epoch):
-        B = self.batch_size
-        n_valid = len(idxs)
+        if self.row_slice is not None:
+            # only this rank's rows; the order and t_cap are the global batch's
+            start, B = self.row_slice
+            n_valid = int(np.clip(len(idxs) - start, 0, B))
+            idxs = idxs[start:start + B]
+        else:
+            B = self.batch_size
+            n_valid = len(idxs)
         idx_arr = np.zeros(B, dtype=np.int32)
         idx_arr[:n_valid] = idxs
         video = np.empty((B, t_cap, *self.frame_shape), dtype=self.frame_dtype)

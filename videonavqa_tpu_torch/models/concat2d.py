@@ -24,6 +24,7 @@ from videonavqa_tpu_torch.ops.linear import embedding, linear
 from videonavqa_tpu_torch.ops.lstm import last_valid, lstm
 from videonavqa_tpu_torch.ops.masking import length_mask
 from videonavqa_tpu_torch.ops.video import normalize_video
+from videonavqa_tpu_torch.parallel.collectives import batch_rows, take_rows
 from videonavqa_tpu_torch.utils.device import tree_to
 
 HIDDEN_SIZE = 128
@@ -60,7 +61,10 @@ def apply_fn(params, state, batch, cfg, *, train=False, generator=None):
     out = torch.cat([last_valid(v_outs, v_lens), last_valid(q_outs, q_lens)], dim=1)
     out = torch.relu(linear(params["fc_tail"], out))
     if train and generator is not None:
-        out = out * dropout_mask(generator, out.shape, 1.0 - DROPOUT, out.device)
+        # drawn over the global batch's rows; this rank takes its own
+        B = out.shape[0]
+        out = out * take_rows(dropout_mask(generator, (batch_rows(B)[0], out.shape[1]),
+                                           1.0 - DROPOUT, out.device), B)
     return linear(params["out_linear"], out), new_state
 
 

@@ -21,6 +21,7 @@ from videonavqa_tpu_torch.ops import initializers as init
 from videonavqa_tpu_torch.ops.linear import embedding, linear
 from videonavqa_tpu_torch.ops.lstm import last_valid, lstm
 from videonavqa_tpu_torch.ops.video import normalize_video
+from videonavqa_tpu_torch.parallel.collectives import batch_rows, take_rows
 from videonavqa_tpu_torch.utils.device import tree_to
 
 HIDDEN_SIZE = concat2d.HIDDEN_SIZE
@@ -43,8 +44,9 @@ def apply_fn(params, state, batch, cfg, *, train=False, generator=None):
     out = torch.cat([h, last_valid(q_outs, q_lens)], dim=1)
     out = torch.relu(linear(params["fc_tail"], out))
     if train and generator is not None:
-        out = out * concat2d.dropout_mask(generator, out.shape, 1.0 - concat2d.DROPOUT,
-                                          out.device)
+        B = out.shape[0]
+        out = out * take_rows(concat2d.dropout_mask(generator, (batch_rows(B)[0], out.shape[1]),
+                                                    1.0 - concat2d.DROPOUT, out.device), B)
     return linear(params["out_linear"], out), new_state
 
 

@@ -45,6 +45,7 @@ from videonavqa_tpu_torch.ops.conv import conv2d
 from videonavqa_tpu_torch.ops.linear import embedding, linear, linear_chw
 from videonavqa_tpu_torch.ops.masking import attn_frame_mask, length_mask, mask_invalid
 from videonavqa_tpu_torch.ops.norm import frame_batch_norm
+from videonavqa_tpu_torch.parallel.collectives import batch_rows, max_over_batch
 from videonavqa_tpu_torch.ops.quant import (
     conv2d_int8_dynamic, conv2d_int8_preq_act, conv2d_int8_prequant, conv2d_int8_static,
     quantize_weight_channelwise)
@@ -95,7 +96,7 @@ def _trunk_convs(params, state, cfg, rows, new_state, device, train=False):
         new_state["int8_wq"] = captured_wq
 
         def conv(p, x, name):
-            captured[name] = 1.25 * torch.amax(torch.abs(x.float()))
+            captured[name] = 1.25 * max_over_batch(torch.amax(torch.abs(x.float())))
             wq, sw = quantize_weight_channelwise(p["weight"])
             captured_wq[name] = {"wq": wq, "scale": sw}
             return conv2d(p, x, dtype=torch.float32)
@@ -120,7 +121,8 @@ def _trunk_convs(params, state, cfg, rows, new_state, device, train=False):
     if device.type != "cpu":
         ch = cfg.num_res_block_channels
         check_shape(rows, ch, ch)
-    requant_stored = rows > INT8_REQUANT_F32_MAX_ROWS
+    # the JAX package's route at the global batch's count
+    requant_stored = batch_rows(rows)[0] > INT8_REQUANT_F32_MAX_ROWS
 
     def block_convs(k, x, p1x1, p3x3):
         n1, n3 = f"conv1x1_{k}", f"conv3x3_{k}"

@@ -42,6 +42,7 @@ from videonavqa_tpu_torch.ops.conv import conv2d
 from videonavqa_tpu_torch.ops.linear import embedding, linear
 from videonavqa_tpu_torch.ops.lstm import bilstm, last_valid, lstm
 from videonavqa_tpu_torch.ops.masking import mask_invalid, word_softmax_mask
+from videonavqa_tpu_torch.parallel.collectives import batch_rows, like_sharded, take_rows
 from videonavqa_tpu_torch.utils.device import tree_to
 
 SELF_ATTENTION = False
@@ -121,8 +122,10 @@ def mac_recurrence(mac, context, question, know, word_mask, frames, cfg, masks=N
     if masks is not None:
         control, memory = control * control_mask, memory * memory_mask
     w_read = mac["read_concat"]["weight"].float()
-    know_part = linear({"weight": w_read[:, dim:], "bias": mac["read_concat"]["bias"]}, know)
-    w_mem_part = {"weight": w_read[:, :dim]}
+    # column slices of a weight whose rows may be split over 'model'
+    know_part = linear({"weight": like_sharded(w_read[:, dim:], w_read),
+                        "bias": mac["read_concat"]["bias"]}, know)
+    w_mem_part = {"weight": like_sharded(w_read[:, :dim], w_read)}
 
     def control_unit(i, control, control_mask):
         # attention over the words
@@ -200,7 +203,10 @@ def apply_fn(params, state, batch, cfg, *, train=False, generator=None):
 
     masks = None
     if train and cfg.mac_dropout > 0:
-        masks = variational_masks(generator, B * T, dim, 1.0 - cfg.mac_dropout, feats.device)
+        # drawn over the global batch's rows; this rank takes its own
+        masks = variational_masks(generator, batch_rows(B * T)[0], dim, 1.0 - cfg.mac_dropout,
+                                  feats.device)
+        masks = tuple(take_rows(m, B * T) for m in masks)
     memory = mac_recurrence(params["mac"], context, h, know, word_mask, T, cfg, masks)
     outs = torch.cat([memory, h.repeat_interleave(T, dim=0)], dim=1).reshape(B, T, 3 * dim)
     tail, _ = lstm(params["lstm_tail"], mask_invalid(outs, v_lens), v_lens,

@@ -19,6 +19,7 @@ from videonavqa_tpu_torch.models.base import register_model
 from videonavqa_tpu_torch.ops import initializers as init
 from videonavqa_tpu_torch.ops.linear import embedding, linear
 from videonavqa_tpu_torch.ops.lstm import last_valid, lstm
+from videonavqa_tpu_torch.parallel.collectives import batch_rows, take_rows
 from videonavqa_tpu_torch.utils.device import tree_to
 
 
@@ -54,7 +55,10 @@ def apply_with_state(params, batch, cfg, h0, c0, *, train=False):
 
 def apply_fn(params, state, batch, cfg, *, train=False, generator=None):
     q = batch["question"]
-    h0, c0 = initial_state(generator, (q.shape[0], cfg.hidden_size), q.device)
+    # drawn over the global batch's rows; this rank takes its own
+    B = q.shape[0]
+    h0, c0 = initial_state(generator, (batch_rows(B)[0], cfg.hidden_size), q.device)
+    h0, c0 = take_rows(h0, B), take_rows(c0, B)
     return apply_with_state(params, batch, cfg, h0, c0, train=train), state
 
 

@@ -1,13 +1,23 @@
-"""Linear / embedding ops over torch-layout parameter dicts (weights ``[out, in]``)."""
+"""Linear / embedding ops over torch-layout parameter dicts (weights ``[out, in]``).
+
+A weight whose output rows are split over a mesh's 'model' axis
+(``parallel/mesh.py put_global``) gives this rank's columns, all-gathered
+over 'model' before the (replicated) bias is added
+(``parallel/collectives.py``).
+"""
 
 from __future__ import annotations
 
 import torch
 
+from videonavqa_tpu_torch.parallel.collectives import enter_model_columns, gather_model_columns
+
 
 def linear(params, x):
     """y = x @ W^T + b in f32 (the JAX op accumulates and returns f32)."""
-    y = torch.matmul(x.float(), params["weight"].float().t())
+    w = params["weight"]
+    y = torch.matmul(enter_model_columns(x, w).float(), w.float().t())
+    y = gather_model_columns(y, w)
     b = params.get("bias")
     if b is not None:
         y = y + b.float()
@@ -24,9 +34,11 @@ def linear_chw(params, x):
     with the (much smaller) weight moved instead of the activation.
     """
     H, W, C = x.shape[-3:]
-    w = params["weight"].float().reshape(-1, C, H, W).permute(0, 2, 3, 1)
-    y = torch.matmul(x.reshape(*x.shape[:-3], H * W * C).float(),
+    weight = params["weight"]
+    w = weight.float().reshape(-1, C, H, W).permute(0, 2, 3, 1)
+    y = torch.matmul(enter_model_columns(x, weight).reshape(*x.shape[:-3], H * W * C).float(),
                      w.reshape(w.shape[0], -1).t())
+    y = gather_model_columns(y, weight)
     b = params.get("bias")
     if b is not None:
         y = y + b.float()

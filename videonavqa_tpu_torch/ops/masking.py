@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import torch
 
+from videonavqa_tpu_torch.parallel.collectives import max_over_batch
 from videonavqa_tpu_torch.utils.constants import NEG_MASK_VALUE
 
 
@@ -16,17 +17,19 @@ def attn_frame_mask(v_lens, t: int):
     """The reference's attention mask: -2^31 where the frame is within the
     *batch's* processed range (t < max(v_lens)) but beyond the example's own
     length; 0 elsewhere. Frames beyond the batch max are NOT masked: they take
-    part in attention with zero features. Returns [B, T] f32."""
+    part in attention with zero features. Under a mesh the batch is the
+    global one. Returns [B, T] f32."""
     t_idx = torch.arange(t, device=v_lens.device)[None, :]
-    masked = (t_idx < v_lens.max()) & (t_idx >= v_lens[:, None])
+    masked = (t_idx < max_over_batch(v_lens.max())) & (t_idx >= v_lens[:, None])
     return torch.where(masked, NEG_MASK_VALUE, 0.0).float()
 
 
 def word_softmax_mask(q_lens, t: int):
     """[1, T] f32 additive mask of a softmax over words: 0 within the *batch's*
-    max question length (torch's pad_packed width), -inf beyond it."""
+    max question length (torch's pad_packed width; under a mesh, the global
+    batch's), -inf beyond it."""
     t_idx = torch.arange(t, device=q_lens.device)[None, :]
-    return torch.where(t_idx < q_lens.max(), 0.0, -torch.inf)
+    return torch.where(t_idx < max_over_batch(q_lens.max()), 0.0, -torch.inf)
 
 
 def mask_invalid(x, lens):

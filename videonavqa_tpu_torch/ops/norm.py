@@ -7,12 +7,17 @@ examples x H x W only, and folds the reference's one EMA update per
 processed frame (frames t < the batch's longest video, in order) into the
 closed form ``r_K = (1-m)^K r_0 + m * sum_t (1-m)^(K-1-t) s_t``.
 Statistics are taken in f32 whatever the input dtype; the new running
-statistics carry no gradient.
+statistics carry no gradient. Under a mesh every statistic (the sums, the
+counts, the longest video) is the global batch's
+(``parallel/collectives.py``), and a sum's gradient reaches every rank's
+rows.
 """
 
 from __future__ import annotations
 
 import torch
+
+from videonavqa_tpu_torch.parallel.collectives import current, max_over_batch, sum_over_batch
 
 EPS = 1e-5
 MOMENTUM = 0.1
@@ -31,16 +36,16 @@ def frame_batch_norm(params, state, x, frame_mask, *, train: bool):
     T = x.shape[1]
     fm = frame_mask.float()
     m = fm[:, :, None, None, None]
-    count = fm.sum(dim=0) * (x.shape[2] * x.shape[3])          # [T]
+    count = sum_over_batch(fm.sum(dim=0)) * (x.shape[2] * x.shape[3])   # [T]
     safe = torch.clamp(count, min=1.0)
-    mean = (x * m).sum(dim=(0, 2, 3)) / safe[:, None]          # [T, C]
+    mean = sum_over_batch((x * m).sum(dim=(0, 2, 3))) / safe[:, None]   # [T, C]
     centered = x - mean[None, :, None, None, :]
-    var = (torch.square(centered) * m).sum(dim=(0, 2, 3)) / safe[:, None]
+    var = sum_over_batch((torch.square(centered) * m).sum(dim=(0, 2, 3))) / safe[:, None]
     y = centered * torch.reciprocal(torch.sqrt(var[None, :, None, None, :] + EPS))
     y = y * params["weight"] + params["bias"]
 
     # the sequential EMA over the processed frames t < K, K = the longest video
-    K = frame_mask.sum(dim=1).max().float()
+    K = max_over_batch(frame_mask.sum(dim=1).max()).float()
     t_idx = torch.arange(T, dtype=torch.float32, device=x.device)
     decay = torch.pow(1.0 - MOMENTUM, torch.clamp(K - 1.0 - t_idx, min=0.0)) * (t_idx < K).float()
     w = (MOMENTUM * decay)[:, None]
@@ -56,9 +61,15 @@ def batch_stats(state, x):
     last, as train-mode batch_norm takes them: the unbiased variance enters
     the running-stat EMA, which carries no gradient."""
     axes = tuple(range(x.ndim - 1))
-    mean = x.mean(dim=axes)
-    var = torch.square(x - mean).mean(dim=axes)
     n = x.numel() // x.shape[-1]
+    rank = current()
+    if rank is None:
+        mean = x.mean(dim=axes)
+        var = torch.square(x - mean).mean(dim=axes)
+    else:   # every rank holds as many rows
+        n *= rank.shape["data"]
+        mean = sum_over_batch(x.sum(dim=axes)) / n
+        var = sum_over_batch(torch.square(x - mean).sum(dim=axes)) / n
     unbiased = var.detach() * (n / max(n - 1, 1))
     new_state = {"mean": (1 - MOMENTUM) * state["mean"] + MOMENTUM * mean.detach(),
                  "var": (1 - MOMENTUM) * state["var"] + MOMENTUM * unbiased}

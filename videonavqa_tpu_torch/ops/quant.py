@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from videonavqa_tpu_torch.parallel.collectives import max_over_batch
+
 # Bytes of one im2col chunk: bounds the int8 copy of a 3x3 conv's input
 # (1.34 GB unchunked at batch 32 x 35 frames x 1024 channels).
 _IM2COL_CHUNK_BYTES = 1 << 28
@@ -45,8 +47,9 @@ def quantize_act(x, sx):
 
 
 def quantize_act_dynamic(x):
-    """Activations -> (int8, scalar f32 scale), per-tensor absmax."""
-    sx = act_scale(torch.amax(torch.abs(x.float())))
+    """Activations -> (int8, scalar f32 scale), per-tensor absmax (under a
+    mesh, the global batch's)."""
+    sx = act_scale(max_over_batch(torch.amax(torch.abs(x.float()))))
     return quantize_act(x, sx), sx
 
 

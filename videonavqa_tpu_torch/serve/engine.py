@@ -44,6 +44,18 @@ flags, and the engine also carries:
 
 The forward runs under ``torch.inference_mode()`` in the thread that calls
 it: a request thread's mode does not carry over to the batcher's threads.
+
+Mesh serving (``mesh``: a single-process ``parallel.make_mesh``; the
+daemon's ``--mesh_devices N [--model_parallel M]``) is single-process, as
+the JAX daemon's: a replica of the weights on every device, the widest
+projections' rows split over a data row's 'model' devices
+(``param_shardings``), the micro-batch's rows split over the 'data' devices
+(``--max_batch`` must divide by them). Each device's forward runs in a
+thread of its own under ``parallel.collectives.thread_rank``, its batch
+statistics (the attention mask's longest video, the dynamic int8 absmax,
+the calibration's) over the whole micro-batch, and the logits of each data
+row's first device are gathered on the first device. A reload or an int8
+calibration replaces every replica at once, under the weights lock.
 """
 
 from __future__ import annotations
@@ -52,6 +64,7 @@ import collections
 import dataclasses
 import os
 import threading
+from concurrent.futures import FIRST_EXCEPTION, ThreadPoolExecutor, wait
 
 import numpy as np
 import torch
@@ -61,6 +74,8 @@ from videonavqa_tpu_torch.models import get_model
 from videonavqa_tpu_torch.models import v_only_cnn3d
 from videonavqa_tpu_torch.models.base import DTYPES
 from videonavqa_tpu_torch.ops.video import normalize_video
+from videonavqa_tpu_torch.parallel import collectives
+from videonavqa_tpu_torch.parallel.mesh import param_shardings, put_global, shard_batch
 from videonavqa_tpu_torch.stem import (
     STEM_SEED, init_obj_detector, init_vgg_partial, stem_features)
 from videonavqa_tpu_torch.train.step import forward
@@ -126,12 +141,28 @@ class InferenceEngine:
     (e.g. from ``utils.checkpoint.stem_from_jax``), else the reference init
     drawn from ``torch.Generator().manual_seed(1234)``, the seed number of the
     JAX package's random stem (the two generators give different weights),
-    with as many detector filters as the model has input channels. A model
-    that takes video itself is served from frames either way; a
-    question-only model has no video mode and raises."""
+    with as many detector filters as the model has input channels; under a
+    mesh over several devices, ``stem`` may also be {device: callable}. A
+    model that takes video itself is served from frames either way; a
+    question-only model has no video mode and raises.
+
+    ``mesh``: a single-process mesh (``parallel.make_mesh(..., devices=)``)
+    to serve on; ``device`` is then its first device."""
 
     def __init__(self, cfg, *, checkpoint_path=None, seed=0, max_batch=8,
-                 frame_buckets=C.FRAME_BUCKETS, device=None, from_video=False, stem=None):
+                 frame_buckets=C.FRAME_BUCKETS, device=None, from_video=False, stem=None,
+                 mesh=None):
+        self.mesh = mesh
+        if mesh is not None:
+            if mesh.process:
+                raise ValueError("mesh serving is single-process: pass a mesh over devices")
+            if max_batch % mesh.shape["data"]:
+                raise ValueError(f"max_batch {max_batch} must divide by the 'data' mesh axis "
+                                 f"({mesh.shape['data']})")
+            device = mesh.devices[0]
+            # one thread a device; one micro-batch on the mesh at a time
+            self._pool = ThreadPoolExecutor(max_workers=mesh.size, thread_name_prefix="mesh")
+            self._mesh_lock = threading.Lock()
         self.device = resolve_device(device)
         self.cfg = cfg
         self.spec = get_model(cfg.model)
@@ -146,8 +177,11 @@ class InferenceEngine:
                 vgg = init_vgg_partial(gen)
                 det, det_state = init_obj_detector(gen, num_filters=cfg.num_input_channels)
                 stem = (vgg, det, det_state)
-            self.stem = stem if callable(stem) else tuple(tree_to(t, self.device)
-                                                           for t in stem)
+            self.stem = stem if callable(stem) or isinstance(stem, dict) else \
+                tuple(tree_to(t, self.device) for t in stem)
+            if mesh is not None and isinstance(self.stem, tuple):
+                self.stem = {d: tuple(tree_to(t, d) for t in self.stem)
+                             for d in set(mesh.devices)}
         self.visual_key = ("v_features" if self.spec.uses_stem and not from_video
                            else "video" if self.spec.needs_video else None)
         self.seed = seed
@@ -194,9 +228,18 @@ class InferenceEngine:
         served from video through ``load_stem``'s stem."""
         from videonavqa_tpu_torch.cli.common import cfg_from_args, load_stem, refuse_unported
         from videonavqa_tpu_torch.data.pipeline import DataPaths, load_json
+        from videonavqa_tpu_torch.parallel.mesh import local_devices, make_mesh
 
-        refuse_unported(args, args.model)
+        refuse_unported(args, args.model, batch_flag="max_batch")
+        if getattr(args, "distributed", False):
+            raise SystemExit("mesh serving is single-process (a replica owns its devices; "
+                             "replicas scale behind a load balancer): drop --distributed")
         device = resolve_device(args.device)
+        mesh = None
+        if getattr(args, "mesh_devices", 0):
+            mesh = make_mesh(args.mesh_devices, args.model_parallel or 1,
+                             devices=local_devices(device.type))
+            device = mesh.devices[0]
         cfg = cfg_from_args(args, args.model)
         use_kernels = args.use_pallas_kernels
         if use_kernels is None:   # on the card, on; on the CPU, the plain versions
@@ -249,10 +292,14 @@ class InferenceEngine:
         calib = None
         if from_video and getattr(args, "int8_stem", False):
             calib = stem_calibration_batch(args, paths, rng)
-        stem = load_stem(args, paths, device, calibration_video=calib) if from_video else None
+        stem = None
+        if from_video:   # one stem a device
+            stems = {d: load_stem(args, paths, d, calibration_video=calib)
+                     for d in (set(mesh.devices) if mesh is not None else {device})}
+            stem = stems[device] if len(stems) == 1 else stems
         eng = cls(cfg, checkpoint_path=args.checkpoint_path, seed=args.seed,
                   max_batch=args.max_batch, frame_buckets=buckets, device=device,
-                  from_video=from_video, stem=stem)
+                  from_video=from_video, stem=stem, mesh=mesh)
         eng.stem_is_int8 = calib is not None
         eng.rng = rng
         eng.paths = paths
@@ -298,11 +345,21 @@ class InferenceEngine:
         zero_run = self._zero_run(*weights)
         if zero_run is not None:
             weights = (weights[0], {**weights[1], "c3d_zero": zero_run})
+        if self.mesh is not None:
+            weights = self._replicas(*weights)
         with self._weights_lock:
             self._weights = weights
             self._weights_version += 1
             self._needs_int8_calibration = bool(self.cfg.use_int8_trunk)
         return int(meta.get("epoch", 0))
+
+    def _replicas(self, params, state):
+        """One (params, state) a mesh rank: its rows of the 'model'-sharded
+        leaves, the rest whole, on its device."""
+        specs = param_shardings(params, self.mesh)
+        return tuple((put_global(params, specs, r),
+                      tree_map(lambda t: t.to(r.device, copy=True), state))
+                     for r in self.mesh.ranks)
 
     def _zero_run(self, params, state):
         """A C3D model's precomputed zero-run for each frame bucket the cached
@@ -317,11 +374,15 @@ class InferenceEngine:
 
     @property
     def params(self):
-        return self._weights[0]
+        """The weights (under a mesh, the first device's replica)."""
+        return self._replica(self._weights)[0]
 
     @property
     def state(self):
-        return self._weights[1]
+        return self._replica(self._weights)[1]
+
+    def _replica(self, weights):
+        return weights if self.mesh is None else weights[0]
 
     @property
     def needs_int8_calibration(self):
@@ -421,7 +482,8 @@ class InferenceEngine:
         n = len(items)
         if not 1 <= n <= self.B:
             raise ValueError(f"a micro-batch holds 1..{self.B} items, got {n}")
-        pin = self.device.type == "cuda"
+        # under a mesh, host tensors: each device takes its rows (_mesh_forward)
+        pin = self.device.type == "cuda" and self.mesh is None
         host = {"question": torch.zeros((self.B, C.MAX_Q_LEN), dtype=torch.int32,
                                         pin_memory=pin),
                 "v_len": torch.ones(self.B, dtype=torch.int32, pin_memory=pin),
@@ -456,7 +518,7 @@ class InferenceEngine:
                         src = src.view(out.dtype)
                     out[i, :t_i] = src
                 host[self.visual_key] = visual
-        batch = self._to_device(host)
+        batch = self._to_device(host) if self.mesh is None else dict(host)
         if on_card:
             batch[self.visual_key] = on_card[0]
         return batch
@@ -488,10 +550,11 @@ class InferenceEngine:
         ``cfg.compute_dtype`` with block 1 through its kernel where
         ``cfg.use_pallas_kernels`` (``cfg``: the engine's by default)."""
         video = normalize_video(batch["video"])
-        if callable(self.stem):
-            return self.stem(video)
+        stem = self.stem[video.device] if isinstance(self.stem, dict) else self.stem
+        if callable(stem):
+            return stem(video)
         cfg = cfg or self.cfg
-        return stem_features(*self.stem, video, dtype=DTYPES[cfg.compute_dtype],
+        return stem_features(*stem, video, dtype=DTYPES[cfg.compute_dtype],
                              use_kernel=cfg.use_pallas_kernels)
 
     def forward(self, batch, cfg=None, generator=None, weights=None):
@@ -500,13 +563,52 @@ class InferenceEngine:
         mode a stem model's frames first become features. Without
         ``generator`` the batch draws from one seeded with the engine's seed."""
         cfg = cfg or self.cfg
-        params, state = weights or self._weights
+        weights = weights or self._weights
+        if self.mesh is not None:
+            return self._mesh_forward(batch, cfg, weights)
+        params, state = weights
         if self.stem is not None:
             batch = dict(batch, v_features=self.features(batch, cfg))
             del batch["video"]
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(self.seed)
         return forward(self.spec, cfg, params, state, batch, generator)
+
+    def _mesh_forward(self, batch, cfg, weights):
+        """(logits [B, K] on the first device, [each rank's new state]): each
+        rank's forward on its rows, in its thread; a draw at eval is the
+        global batch's (``collectives.batch_rows``), from a generator seeded
+        with the engine's seed."""
+        ranks = self.mesh.ranks
+        out = [None] * len(ranks)
+
+        def run(i):
+            rank = ranks[i]
+            params, state = weights[i]
+            with collectives.thread_rank(rank), torch.inference_mode():
+                local = shard_batch(batch, rank)
+                if self.stem is not None:
+                    local = dict(local, v_features=self.features(local, cfg))
+                    del local["video"]
+                gen = torch.Generator(device=rank.device).manual_seed(self.seed)
+                out[i] = forward(self.spec, cfg, params, state, local, gen)
+
+        with self._mesh_lock:
+            futures = [self._pool.submit(run, i) for i in range(len(ranks))]
+            done, _ = wait(futures, return_when=FIRST_EXCEPTION)
+            if any(f.exception() for f in done):   # release the members still waiting
+                for g in self.mesh.thread_groups:
+                    g.abort()
+            wait(futures)
+            errors = [f.exception() for f in futures if f.exception() is not None]
+            if errors:
+                for g in self.mesh.thread_groups:
+                    g.reset()
+                first = [e for e in errors if not isinstance(e, threading.BrokenBarrierError)]
+                raise (first or errors)[0]
+        logits = torch.cat([out[i][0].to(self.device) for i, r in enumerate(ranks)
+                            if r.model_index == 0])
+        return logits, [o[1] for o in out]
 
     def _forward_calibrate(self, batch, weights):
         """The f32 calibration forward -> (logits, state with the int8 scales)."""
@@ -533,7 +635,8 @@ class InferenceEngine:
                 probs = torch.softmax(logits, dim=-1)[:n].cpu().numpy()
                 with self._weights_lock:
                     if self._weights_version == version:
-                        self._weights = (weights[0], new_state)
+                        self._weights = (weights[0], new_state) if self.mesh is None else \
+                            tuple((w[0], st) for w, st in zip(weights, new_state))
                         self._needs_int8_calibration = False
                 return probs, n, None
             logits, _ = self.forward(batch, weights=weights)

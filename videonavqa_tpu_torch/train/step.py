@@ -6,6 +6,11 @@ train forward, the cross-entropy loss, the backward pass through autograd,
 gradient clipping and Adam. Clipping follows the reference harness: the
 q_and_v models clip the global norm at ``clip_value``; MAC also clamps every
 gradient element to +-``elementwise_clamp`` before that clip.
+
+Under a mesh (``parallel/``) each rank's loss is its rows' part, the
+gradients are summed over 'data' in one flat buffer before the clip, and a
+'model'-sharded leaf's squares are summed over 'model' once in the global
+norm, so the clip and the step are one device's.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ import torch
 
 from videonavqa_tpu_torch.models.base import DTYPES
 from videonavqa_tpu_torch.ops.video import normalize_video
+from videonavqa_tpu_torch.parallel import collectives
 from videonavqa_tpu_torch.train.loss import cross_entropy_loss
 
 
@@ -48,19 +54,28 @@ def set_learning_rate(optimizer, l_rate: float):
         group["lr"] = l_rate
 
 
-def global_norm(tensors):
-    """sqrt of the sum of squares of every element, in f32."""
-    return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tensors))
+def global_norm(tensors, sharded=None):
+    """sqrt of the sum of squares of every element, in f32. ``sharded``
+    (bools like ``tensors``): the tensors whose rows are split over a mesh's
+    'model' axis, whose squares are summed over it."""
+    if not sharded or not any(sharded):
+        return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tensors))
+    sq = [torch.sum(torch.square(t.float())) for t in tensors]
+    whole = sum(s for s, sh in zip(sq, sharded) if not sh)
+    return torch.sqrt(whole + collectives.sum_over_model(
+        sum(s for s, sh in zip(sq, sharded) if sh)))
 
 
-def clip_grads(grads, *, clip_value=None, elementwise_clamp=None):
+def clip_grads(grads, *, clip_value=None, elementwise_clamp=None, sharded=None):
     """A list of gradients -> the clipped list: first the optional
     +-elementwise_clamp of each element, then the scale
-    min(1, clip_value / max(global norm, 1e-6))."""
+    min(1, clip_value / max(global norm, 1e-6)) (``sharded``: as in
+    ``global_norm``)."""
     if elementwise_clamp is not None:
         grads = [torch.clamp(g, -elementwise_clamp, elementwise_clamp) for g in grads]
     if clip_value is not None:
-        scale = torch.clamp(clip_value / torch.clamp(global_norm(grads), min=1e-6), max=1.0)
+        scale = torch.clamp(clip_value / torch.clamp(global_norm(grads, sharded), min=1e-6),
+                            max=1.0)
         grads = [g * scale for g in grads]
     return grads
 
@@ -109,6 +124,7 @@ def make_train_step(spec, cfg, optimizer, *, class_weights=None, reduction="mean
     ``rng`` does; the harness gives each batch its own. A model that draws
     nothing ignores it."""
     leaves = [p for group in optimizer.param_groups for p in group["params"]]
+    sharded = [collectives.is_model_sharded(p) for p in leaves]
 
     def step(params, state, batch, generator=None):
         if len(tree_leaves(params)) != len(leaves) or any(
@@ -122,13 +138,15 @@ def make_train_step(spec, cfg, optimizer, *, class_weights=None, reduction="mean
                                   reduction=reduction)
         loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in leaves]
-        grads = clip_grads(grads, clip_value=clip_value, elementwise_clamp=elementwise_clamp)
+        grads = collectives.sum_grads_over_data(grads)
+        grads = clip_grads(grads, clip_value=clip_value, elementwise_clamp=elementwise_clamp,
+                           sharded=sharded)
         for p, g in zip(leaves, grads):
             p.grad = g
         optimizer.step()
         preds = torch.argmax(logits.detach(), dim=-1)
         metrics = {"loss": loss.detach(), "hits": torch.sum(preds == batch["label"]),
-                   "preds": preds, "grad_norm": global_norm(grads)}
+                   "preds": preds, "grad_norm": global_norm(grads, sharded)}
         return new_state, metrics
 
     return step

@@ -27,6 +27,12 @@ learning rate from the checkpoint, as a restored optax state carries its own.
 ``save_checkpoint_async`` snapshots to the host at once and writes on a
 background thread; ``wait_for_pending_saves`` waits for those writes.
 ``stem_from_jax`` carries the frozen stem's trees (as numpy) across.
+
+Under a mesh (``parallel/``) a save is collective: every rank calls it, the
+leaves whose rows are split over 'model' (and their Adam moments) are
+all-gathered whole, and rank 0 writes the one global file in the JAX
+package's layout. A restore reads the whole file on every rank into whole
+templates, which the harness then places (``Harness.shard_model``).
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from videonavqa_tpu_torch.parallel.collectives import current, full_leaf
 from videonavqa_tpu_torch.train.step import tree_items
 from videonavqa_tpu_torch.utils.device import tree_to
 from videonavqa_tpu_torch.utils.zoo_import import import_model_checkpoint, verify_shapes
@@ -187,7 +194,8 @@ def adam_to_flat(optimizer, params):
     for path, p in tree_items(params):
         st = optimizer.state.get(p)
         for prefix, key in ((OPT_MU, "exp_avg"), (OPT_NU, "exp_avg_sq")):
-            flat[prefix + path] = _to_numpy(st[key] if st else torch.zeros_like(p))
+            flat[prefix + path] = _to_numpy(full_leaf(st[key] if st else torch.zeros_like(p),
+                                                      like=p))
     return flat
 
 
@@ -230,7 +238,7 @@ def adam_from_flat(optimizer, params, flat):
 
 def _gather_flat(params, state, optimizer, meta):
     """A host snapshot of every leaf in the file's layout."""
-    flat = {"params/" + k: _to_numpy(v) for k, v in tree_items(params)}
+    flat = {"params/" + k: _to_numpy(full_leaf(v)) for k, v in tree_items(params)}
     if state is not None:
         flat.update({"state/" + k: _to_numpy(v) for k, v in _stored_items(state)})
     if optimizer is not None:
@@ -248,10 +256,19 @@ def _write_flat(path, flat):
     os.replace(tmp, path)  # atomic against a failure mid-write
 
 
+def _writes():
+    """False on every mesh rank but rank 0."""
+    rank = current()
+    return rank is None or rank.rank == 0
+
+
 def save_checkpoint(path, *, params, state=None, optimizer=None, meta=None):
     """Write ``params`` (and ``state``, and ``optimizer``'s Adam state) to
-    ``path`` in the JAX package's format."""
-    _write_flat(path, _gather_flat(params, state, optimizer, meta))
+    ``path`` in the JAX package's format (under a mesh: every rank calls,
+    rank 0 writes)."""
+    flat = _gather_flat(params, state, optimizer, meta)
+    if _writes():
+        _write_flat(path, flat)
 
 
 def _is_torch_save(path: str) -> bool:
@@ -342,9 +359,12 @@ _executor = None
 
 def save_checkpoint_async(path, *, params, state=None, optimizer=None, meta=None):
     """Snapshot every leaf to the host now (later steps update the tensors in
-    place), then serialize and write on a background thread. -> the future."""
+    place), then serialize and write on a background thread. -> the future
+    (None on a mesh rank that does not write)."""
     global _executor
     flat = _gather_flat(params, state, optimizer, meta)
+    if not _writes():
+        return None
     with _pending_lock:
         if _executor is None:
             _executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="ckpt")
