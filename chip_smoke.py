@@ -235,7 +235,23 @@ kernel's plain version):
              argmax rule), and the engine on model 2 (two threads) against
              one device; (c) the
              daemon with --mesh_devices 1 over the bf16 cache, each answer
-             against run_batch of the engine without a mesh.
+             against run_batch of the engine without a mesh;
+12. widths — (the grid after phase 3's checks, while torch.profiler still
+             records every launch: late in a run, after the train phase's
+             traces, a window saw 0-4 of 5; the served part after phase 6)
+             every width a ModelConfig can carry: the four width-bound
+             kernels against their plain versions over a grid of widths the
+             served presets do not use (lstm hidden 6, 100, 1,600, 2,048;
+             the re-encode 12, 64, 256, 512; the tail 20, 300, 512, 1,024;
+             the int8 1x1 N = K 48, 200, 1,536, 2,048 on both requant
+             sources), with the bounds of phase 3, each timed with its plain
+             version, its bound and, where one PyTorch call computes it, that
+             call; then InferenceEngine with the kernels on at batch 32 and
+             1, T35, counted and held to the plain path: (a) film_attn_pt at
+             the eval.sh preset's depth with channels 2,048, hidden 256 and
+             attention 512, int8 trunk; (b) film_gp_pt at channels 200 and
+             hidden 100; (c) mac at mac_dim 2,048; (d) the question-only
+             lstm at hidden 100 and 2,048.
 
 Run one kernel's check alone (it builds only that source), e.g.
 ``python3 -c "import torch, chip_smoke as cs; cs.check_vgg_block1(torch.device('cuda'))"``.
@@ -405,8 +421,10 @@ def kernel_device_ms(fn, kernel, iters=10, windows=3):
 
 
 # Substrings of the CUDA kernel names of each kernel of the port.
-KERNEL_NAMES = {"film_reencode": ("film_reencode_kernel",), "attn_tail": ("attn_tail_kernel",),
-                "int8_matmul_fused": ("int8_matmul_kernel",),
+KERNEL_NAMES = {"film_reencode": ("film_reencode_kernel", "film_reencode_wide_kernel"),
+                "attn_tail": ("attn_tail_kernel", "attn_tail_context_kernel",
+                              "attn_tail_gates_kernel", "attn_tail_wide_kernel"),
+                "int8_matmul_fused": ("int8_matmul_kernel", "int8_quantize_kernel"),
                 "lstm": ("lstm_h128_cluster_kernel", "lstm_wide_kernel"),
                 "vgg_block1": ("vgg_block1_bf16_kernel", "vgg_block1_f32_kernel")}
 
@@ -667,7 +685,7 @@ def check_lstm(dev):
         if (F, B, T, H) in LSTM_WIDE_LOGGED:
             run = lambda: lstm_mod.lstm_frames(*args)
             log(f"  lstm {tag}: {kernel_device_ms(run, 'lstm_wide_kernel'):.4f} ms a launch,"
-                f" {-(-B // lstm_mod.MAX_BATCH_WIDE)} launches a pass, wrapper"
+                f" {-(-B // lstm_mod.wide_rows(H, dev))} launches a pass, wrapper"
                 f" {time_ms(run, 10):.4f} ms")
         if (F, B, T, H) not in LSTM_TIMED:
             continue
@@ -3755,6 +3773,394 @@ def mesh(card, tmp, data, ckpt):
     return total
 
 
+# ------------------------------------------------------------ phase 12: widths
+# Widths the served presets do not use, each kernel's own flag: the lstm's
+# hidden size (padded to 8 and 100 as is; 1,600 past 12 units an SM; 2,048
+# at 16 rows a launch), the re-encode's (12 and 64 padded to the cluster's
+# 128; 256 and 512 on the wide chain), the tail's attention size (20 padded
+# to 128; the rest on the wide chain) and the trunk's channels (the streamed
+# int8 route: 48 and 200 padded to 128 and 256, 1,536 and 2,048 past the
+# panels' 1,024).
+WIDTH_LSTM = (6, 100, 1600, 2048)
+WIDTH_REENCODE = (12, 64, 256, 512)
+WIDTH_ATTN = (20, 300, 512, 1024)
+WIDTH_INT8 = (48, 200, 1536, 2048)
+WIDTH_INT8_ROWS = (4550, 145600)   # folded rows of batch 1 and 32 at T35
+
+
+def call_device_ms(fn, subs, launches, iters=5, windows=3):
+    """Device ms of one ``fn()``: the profiler's time of every launch of the
+    kernels whose names hold one of ``subs``, over ``iters`` calls. A window
+    counts only where it saw all ``launches`` launches of each call; up to
+    ``windows`` tries, then the last window's mean launch time, scaled (and
+    said so). Late in a long run a window has missed the first kernel
+    launched in it, so each window opens with a launch of its own."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for window in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.zeros(1, device="cuda").add_(1.0)
+            torch.cuda.synchronize()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and any(sub in e.key for sub in subs)]
+        seen = sum(e.count for e in hits)
+        total = sum(e.self_device_time_total for e in hits)
+        if seen == launches * iters:
+            return total / iters / 1e3
+        log(f"  profiler window {window + 1} of {windows} saw {seen} of"
+            f" {launches * iters} launches of {subs}")
+    if not seen:
+        raise AssertionError(f"the profiler saw no launch of {subs}")
+    log(f"  {subs}: scaled from the last window's {seen} of {launches * iters} launches")
+    return total / seen * launches / 1e3
+
+
+def launches_of(mod, fn):
+    """(result of fn(), launches of ``mod``'s kernel it made)."""
+    before = mod.launches
+    out = fn()
+    return out, mod.launches - before
+
+
+def widths_lstm(dev, card):
+    """lstm_frames at each hidden size of WIDTH_LSTM, F 1, T 56, B 1 and 32
+    (ragged lens, non-zero (h0, c0)): outs, h_f, c_f within RECURRENCE_ATOL
+    of the plain version, outs zero past len; at B 32 timed, with
+    torch.nn.LSTM (cuDNN, unmasked) of the same shape as the library call."""
+    gen = torch.Generator().manual_seed(12)
+    T, E = 56, 128
+    out = {}
+    for H in WIDTH_LSTM:
+        cell = init.torch_default_lstm(gen, E, H)
+        for B in (1, 32):
+            lens = torch.randint(1, T + 1, (B,), generator=gen, dtype=torch.int32)
+            lens[0] = T
+            x = torch.randn((B, T, E), generator=gen)
+            xw = (x @ cell["w_ih"].t() + cell["b_ih"]).transpose(0, 1).contiguous()
+            h0, c0 = torch.randn((B, H), generator=gen), torch.randn((B, H), generator=gen)
+            args = [t.to(dev) for t in (xw, cell["w_hh"], cell["b_hh"], lens, h0, c0)] + [1]
+            got, n = launches_of(lstm_mod, lambda: lstm_mod.lstm_frames(*args))
+            want = lstm_mod.lstm_frames_plain(*args)
+            torch.cuda.synchronize()
+            err = max((g - w).abs().max().item() for g, w in zip(got, want))
+            past = torch.arange(T, device=dev)[:, None] >= args[3][None, :]
+            stray = float((got[0][0].abs() * past[..., None]).max())
+            tag = f"lstm H={H} B={B}"
+            log(f"  {tag}: max_abs_err {err:.3e} (atol {RECURRENCE_ATOL}), largest |out| at"
+                f" t >= len {stray}, {n} launches")
+            if not err <= RECURRENCE_ATOL or stray != 0.0:
+                raise AssertionError(f"{tag} disagrees: {err}, {stray}")
+            if B == 1:
+                continue
+            Hp = lstm_mod.padded_hidden(H)
+            steps = int(lens.sum())
+            nbytes = 4 * (xw.numel() + 4 * H * H + 4 * H + B + 2 * B * H + T * B * H + 2 * B * H)
+            b_ms, b_by = bound_ms(nbytes, steps * (2 * 4 * H * H + 12 * H), F32_FLOPS)
+            lib = torch.nn.LSTM(E, H, batch_first=True).to(dev)
+            with torch.no_grad():
+                for name, key in (("weight_ih_l0", "w_ih"), ("weight_hh_l0", "w_hh"),
+                                  ("bias_ih_l0", "b_ih"), ("bias_hh_l0", "b_hh")):
+                    getattr(lib, name).copy_(cell[key])
+            x_dev, state = x.to(dev), (args[4][None], args[5][None])
+
+            def library():
+                with torch.no_grad():
+                    return lib(x_dev, state)
+            run = lambda: lstm_mod.lstm_frames(*args)
+            out[H] = row = dict(
+                max_abs_err=err, launches=n, bound_ms=b_ms, bound_by=b_by,
+                ms=call_device_ms(run, ("lstm_wide_kernel",), n), wrapper_ms=time_ms(run, 5),
+                plain_ms=time_ms(lambda: lstm_mod.lstm_frames_plain(*args), 2, warmup=1),
+                library_ms=time_ms(library, 5))
+            log(f"  {tag} T={T} (hidden run as {Hp}) on {card}: {row['ms']:.4f} ms in"
+                f" {n} launches (wrapper {row['wrapper_ms']:.4f}), plain {row['plain_ms']:.3f} ms,"
+                f" torch.nn.LSTM {row['library_ms']:.4f} ms, bound {b_ms:.5f} ms by {b_by}")
+    return out
+
+
+def widths_reencode(dev, card):
+    """film_reencode at each hidden size of WIDTH_REENCODE, Tq 56, F 35, B 32
+    and 1 (ragged q_len): finals within RECURRENCE_ATOL of the plain version;
+    at B 32 timed, with 35 chained cuDNN torch.nn.LSTM calls
+    (reencode_library) as the library call."""
+    gen = torch.Generator().manual_seed(13)
+    E, Tq, n_frames = 128, 56, 35
+    out = {}
+    for H in WIDTH_REENCODE:
+        cell = init.reference_lstm(gen, E, H)
+        for B in (32, 1):
+            lens = torch.randint(1, Tq + 1, (B,), generator=gen, dtype=torch.int32)
+            lens[0] = Tq
+            emb = torch.randn((B, Tq, E), generator=gen)
+            xw = (emb @ cell["w_ih"].t() + cell["b_ih"]).transpose(0, 1).contiguous()
+            args = [t.to(dev) for t in (xw, cell["w_hh"], cell["b_hh"], lens)] + [n_frames]
+            got, n = launches_of(reenc_mod, lambda: reenc_mod.film_reencode(*args))
+            want = reenc_mod.film_reencode_plain(*args)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            tag = f"film_reencode H={H} B={B}"
+            log(f"  {tag}: max_abs_err {err:.3e} (atol {RECURRENCE_ATOL}), {n} launches")
+            if not err <= RECURRENCE_ATOL:
+                raise AssertionError(f"{tag} disagrees: {err}")
+            if B == 1:
+                continue
+            steps = n_frames * int(lens.sum())
+            nbytes = 4 * (xw.numel() + 4 * H * H + 4 * H + B) + 4 * n_frames * B * H
+            b_ms, b_by = bound_ms(nbytes, steps * (2 * 4 * H * H + 12 * H), F32_FLOPS)
+            library = reencode_library({k: v.to(dev) for k, v in cell.items()}, emb.to(dev),
+                                       lens, n_frames)
+            run = lambda: reenc_mod.film_reencode(*args)
+            out[H] = row = dict(
+                max_abs_err=err, launches=n, bound_ms=b_ms, bound_by=b_by,
+                ms=call_device_ms(run, ("film_reencode_kernel", "film_reencode_wide_kernel"),
+                                  n, iters=2),
+                wrapper_ms=time_ms(run, 2, warmup=1),
+                plain_ms=time_ms(lambda: reenc_mod.film_reencode_plain(*args), 1, warmup=0),
+                library_ms=time_ms(library, 2, warmup=1))
+            log(f"  {tag} on {card}: {row['ms']:.4f} ms in {n} launches (wrapper"
+                f" {row['wrapper_ms']:.4f}), plain {row['plain_ms']:.3f} ms, cuDNN yardstick"
+                f" {row['library_ms']:.4f} ms, bound {b_ms:.5f} ms by {b_by}; the serial chain"
+                f" is {n_frames * int(lens.max())} dependent steps")
+    return out
+
+
+def widths_attn(dev, card):
+    """attn_tail at each attention size of WIDTH_ATTN, T 35 (ragged v_len, the
+    phantom frames of the shorter rows), 35 steps, B 32 and 1: hs within
+    RECURRENCE_ATOL of the plain version; at B 32 timed (no single PyTorch
+    call computes it), and at the most frames the wide kernels hold at 300
+    (B 1)."""
+    gen = torch.Generator().manual_seed(14)
+    S = 35
+    out = {}
+    for A in WIDTH_ATTN:
+        params = {"fc_hidden_attn": init.reference_linear(gen, 1, A),
+                  "lstm_attn": init.reference_lstm(gen, A, A)}
+        params = {k: {n: t.to(dev) for n, t in v.items()} for k, v in params.items()}
+        shapes = [(32, 35), (1, 35)]
+        if A == 300:
+            shapes.append((1, _build.function("attn_tail", "attn_tail_max_frames",
+                                              [ctypes.c_int])(attn_mod.padded_size(A))))
+        for B, T in shapes:
+            v_lens = torch.randint(1, T + 1, (B,), generator=gen, dtype=torch.int32)
+            v_lens[0] = T
+            v_lens = v_lens.to(dev)
+            fmask = length_mask(v_lens, T)
+            feats = torch.randn((B, T, A), generator=gen).to(dev) * fmask[..., None]
+            scores = torch.where(fmask, torch.randn((B, T), generator=gen).to(dev), 0.0)
+            args = (params, feats, scores, attn_frame_mask(v_lens, T), S, float(max(0, S - T)))
+            got, n = launches_of(attn_mod, lambda: attn_mod.attn_tail(*args))
+            want = attn_mod.attn_tail_plain(*args)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            tag = f"attn_tail A={A} B={B} T={T}"
+            log(f"  {tag}: max_abs_err {err:.3e} (atol {RECURRENCE_ATOL}), {n} launches")
+            if not err <= RECURRENCE_ATOL:
+                raise AssertionError(f"{tag} disagrees: {err}")
+            if (B, T) != (32, 35):
+                continue
+            nbytes = 4 * (B * T * A + 2 * B * T + 2 * 4 * A * A + 4 * A + B * S * A)
+            ops = B * (6 * T + 2 * T * A + 2 * 4 * A * A + 4 * A + S * (2 * 4 * A * A + 12 * A))
+            b_ms, b_by = bound_ms(nbytes, ops, F32_FLOPS)
+            run = lambda: attn_mod.attn_tail(*args)
+            out[A] = row = dict(
+                max_abs_err=err, launches=n, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                ms=call_device_ms(run, ("attn_tail_",), n), wrapper_ms=time_ms(run, 5),
+                plain_ms=time_ms(lambda: attn_mod.attn_tail_plain(*args), 2, warmup=1))
+            log(f"  {tag} (run as {attn_mod.padded_size(A)}) on {card}: {row['ms']:.4f} ms in"
+                f" {n} launches (wrapper {row['wrapper_ms']:.4f}), plain {row['plain_ms']:.3f}"
+                f" ms, bound {b_ms:.5f} ms by {b_by}")
+    return out
+
+
+def widths_int8(dev, card):
+    """The fused int8 1x1 at N = K in WIDTH_INT8 over WIDTH_INT8_ROWS, bf16 x
+    and y with ReLU, on both requant sources: y within one bf16 ulp of the
+    plain version's, yq within one step on at most YQ_MAX_FRACTION of its
+    elements (and, from the stored source, equal to quantize_act of the y
+    the kernel stored); at 145,600 rows timed with the f32 source, with
+    torch._int_mm of the quantized operands as the library call."""
+    gen = torch.Generator().manual_seed(15)
+    out = {}
+    for C in WIDTH_INT8:
+        w = init.reference_conv2d(gen, 1, 1, C, C)["weight"]
+        wq, w_scale = quantize_weight_channelwise(w)
+        wq2, w_scale = wq[:, :, 0, 0].contiguous().to(dev), w_scale.to(dev)
+        bias = (0.1 * torch.randn(C, generator=gen)).to(dev)
+        for M in WIDTH_INT8_ROWS:
+            x = torch.relu(torch.randn((M, C), generator=gen)).to(dev).to(torch.bfloat16)
+            sx = act_scale(1.25 * x.float().abs().amax())
+            comb = (sx * w_scale).contiguous()
+            y_ref, _ = int8_mod.int8_matmul_plain(x, wq2, comb, bias, sx, None, relu=True,
+                                                  out_dtype=torch.float32)
+            nx = act_scale(1.25 * y_ref.abs().amax())
+            del y_ref
+            args = (x, wq2, comb, bias, sx, nx)
+            for stored in (False, True):
+                (y, yq), n = launches_of(int8_mod, lambda: int8_mod.int8_matmul_2d(
+                    *args, relu=True, requant_stored=stored))
+                y_p, yq_p = int8_mod.int8_matmul_plain(*args, relu=True,
+                                                       out_dtype=torch.bfloat16,
+                                                       requant_stored=stored)
+                torch.cuda.synchronize()
+                off_ulp = int(((y.float() - y_p.float()).abs() > _bf16_ulp(y_p.float())).sum())
+                step = (yq.int() - yq_p.int()).abs()
+                frac = float((step > 0).float().mean())
+                own = int((yq != quantize_act(y.float(), nx)).sum()) if stored else 0
+                tag = f"int8_matmul_fused N=K={C} M={M} requant_stored={stored}"
+                log(f"  {tag}: y elements beyond 1 bf16 ulp {off_ulp}, yq max step"
+                    f" {int(step.max())}, share differing {frac:.2e}"
+                    + (f", differing from quantize_act(stored y) {own}" if stored else "")
+                    + f"; {n} launches")
+                if off_ulp or int(step.max()) > YQ_MAX_STEP or frac > YQ_MAX_FRACTION or own:
+                    raise AssertionError(f"{tag}: disagrees")
+                del y, yq, y_p, yq_p, step
+            if M == WIDTH_INT8_ROWS[-1]:
+                nbytes = M * C * 2 + C * C + 2 * C * 4 + 8 + M * C * 2 + M * C
+                b_ms, b_by = bound_ms(nbytes, 2 * M * C * C, INT8_OPS)
+                xq, wt = quantize_act(x, sx), wq2.t()
+                run = lambda: int8_mod.int8_matmul_2d(*args, relu=True)
+                out[C] = row = dict(
+                    launches=n, bound_ms=b_ms, bound_by=b_by,
+                    ms=call_device_ms(run, ("int8_matmul_kernel", "int8_quantize_kernel"),
+                                      n, iters=10),
+                    wrapper_ms=time_ms(run, 10),
+                    plain_ms=time_ms(lambda: int8_mod.int8_matmul_plain(
+                        *args, relu=True, out_dtype=torch.bfloat16), 3, warmup=1),
+                    library_ms=time_ms(lambda: torch._int_mm(xq, wt), 10))
+                log(f"  int8_matmul_fused N=K={C} M={M} on {card}"
+                    f" ({'panel' if int8_mod.panel_route(C, C) else 'streamed'} route):"
+                    f" {row['ms']:.4f} ms in {n} launches (wrapper {row['wrapper_ms']:.4f}),"
+                    f" plain {row['plain_ms']:.4f} ms, torch._int_mm alone"
+                    f" {row['library_ms']:.4f} ms, bound {b_ms:.5f} ms by {b_by}")
+                del xq
+            del x, args
+            torch.cuda.empty_cache()
+    return out
+
+
+# The served widths of phase 12: film_attn_pt at the eval.sh preset's depth
+# with the widest flags (a), film_gp_pt at the preset's depth with odd
+# widths (b), MAC at mac_dim 2,048 (c), the question-only lstm at an odd and
+# a wide hidden size (d).
+WIDTH_FILM_ATTN_CFG = dataclasses.replace(FILM_ATTN_CFG, num_res_block_channels=2048,
+                                          hidden_size=256, at_hidden_size=512)
+WIDTH_FILM_GP_CFG = dataclasses.replace(FILM_GP_CFG, num_res_block_channels=200,
+                                        hidden_size=100)
+WIDTH_MAC_CFG = ModelConfig(model="mac", mac_dim=2048, use_pallas_kernels=True)
+
+
+def lstm_launches(H, *batches):
+    """Launches of the lstm kernel for one pass at hidden size H over each
+    batch: one at 128, else one a slice of wide_rows rows."""
+    if H == 128:
+        return len(batches)
+    rows = lstm_mod.wide_rows(lstm_mod.padded_hidden(H), torch.device("cuda"))
+    return sum(-(-b // rows) for b in batches)
+
+
+def width_launches(cfg):
+    """Each kernel's launches over one forward at batch 32 and one at batch 1
+    of ``cfg`` (T35, kernels on, int8 trunk calibrated)."""
+    if cfg.model == "lstm":
+        return {"lstm": lstm_launches(cfg.hidden_size, 32, 1)}
+    if cfg.model == "mac":
+        return {"lstm": 2 * lstm_launches(cfg.mac_dim, 32, 1)
+                + lstm_launches(3 * cfg.mac_dim, 32, 1)}
+    C = cfg.num_res_block_channels
+    per_block = 1 if int8_mod.panel_route(C, C) else 2
+    want = {"int8_matmul_fused": per_block * fused_1x1_launches(
+        cfg.num_res_blocks, 32 * 35 * 130, 35 * 130)}
+    H = cfg.hidden_size
+    want["film_reencode"] = 2 if H <= 128 else 35 * lstm_launches(H, 32, 1)
+    if cfg.model == "film_attn_pt":
+        A = cfg.at_hidden_size
+        want["attn_tail"] = 2 if A <= 256 else 4 + lstm_launches(A, 32, 1)
+    return want
+
+
+def serve_width(dev, cfg, label):
+    """InferenceEngine with ``cfg`` at batch 32 and batch 1, T35, seeded
+    weights and features: calibrated on a first micro-batch (int8 trunk),
+    then one forward of each counted against width_launches, probabilities
+    checked, each held to the plain path, ms/video of each path timed."""
+    t0 = time.perf_counter()
+    eng32 = InferenceEngine(cfg, seed=0, max_batch=32, device=dev)
+    eng1 = InferenceEngine(cfg, seed=0, max_batch=1, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    cpu_gen = torch.Generator().manual_seed(16)
+    visual = eng32.visual_key is not None
+    feats = seeded_features(65, 35, cfg, gen, dev) if visual else [None] * 65
+    its = feature_items(feats, cpu_gen, 0, 65, 35)
+    for i in (32, 64):   # bucket 35 for both counted forwards
+        its[i] = (its[i][0], 35, its[i][2])
+    if not visual:
+        its = [(None, 0, q) for _, _, q in its]
+    cal, b35, one = its[:32], its[32:64], its[64:65]
+    eng32.run_batch(cal)   # the int8 trunk's calibration, where it has one
+    eng1.run_batch(one)
+    runs = ((eng32, b35), (eng1, one))
+    for eng, b in runs:   # warm-up
+        eng.run_batch(b)
+    reset_counters()
+    outs = [eng.run_batch(b) for eng, b in runs]
+    torch.cuda.synchronize()
+    launches = read_counters()
+    log(f"  {label} launches (batch 32 and batch 1, T35): {launches}")
+    expect_launches(label, launches, width_launches(cfg))
+    for probs, (_, b) in zip(outs, runs):
+        check_probs(probs, len(b), cfg.num_classes)
+    worst = max(compare_paths(eng, b) for eng, b in runs)
+    ms = {f"{label} batch {eng.B}": (per_video_ms(eng, b, 2, True),
+                                      per_video_ms(eng, b, 1, False)) for eng, b in runs}
+    log(f"  {label}: " + ", ".join(f"{k} kernel path {a:.3f} ms/video, plain path {p:.3f}"
+                                   for k, (a, p) in ms.items())
+        + f" ({time.perf_counter() - t0:.1f} s with set-up)")
+    del eng32, eng1
+    torch.cuda.empty_cache()
+    return launches, ms, worst
+
+
+WIDTH_SERVED = (
+    (WIDTH_FILM_ATTN_CFG, "(a) film_attn_pt C2048 H256 A512"),
+    (WIDTH_FILM_GP_CFG, "(b) film_gp_pt C200 H100"),
+    (WIDTH_MAC_CFG, "(c) mac dim 2048"),
+    (ModelConfig(model="lstm", hidden_size=100, use_pallas_kernels=True), "(d) lstm H100"),
+    (ModelConfig(model="lstm", hidden_size=2048, use_pallas_kernels=True), "(d) lstm H2048"))
+
+
+def serve_widths(dev):
+    """(a)-(d) of WIDTH_SERVED through serve_width -> (launches, worst |dprob|)."""
+    total, worst = dict.fromkeys(COUNTERS, 0), 0.0
+    for cfg, label in WIDTH_SERVED:
+        launches, _, path_worst = serve_width(dev, cfg, label)
+        for name, n in launches.items():
+            total[name] += n
+        worst = max(worst, path_worst)
+    return total, worst
+
+
+def widths_grid(dev, card):
+    """Phase 12's grid: the four width-bound kernels -> {kernel: {width: row}}."""
+    t0 = time.perf_counter()
+    rows = {"lstm": widths_lstm(dev, card), "film_reencode": widths_reencode(dev, card),
+            "attn_tail": widths_attn(dev, card), "int8_matmul_fused": widths_int8(dev, card)}
+    log(f"  the width grid in {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def widths(dev, card):
+    """Phase 12 alone -> (launches of the served widths, the grid's rows)."""
+    rows = widths_grid(dev, card)
+    return serve_widths(dev)[0], rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -3787,6 +4193,8 @@ def main():
     gate = sweep_int8_gate(dev)
     lstm = check_lstm(dev)
     block1 = check_vgg_block1(dev)
+    log("phase widths (the grid; its times need the profiler before the train phase's traces)")
+    widths_grid(dev, card)
 
     log("phase serve")
     launches, ms, worst, served_ms, c3d = serve(dev)
@@ -3824,6 +4232,14 @@ def main():
         launches[name] += n
     log(f"  (g) in {time.perf_counter() - t0:.1f} s")
 
+    log("phase widths (served)")
+    t0 = time.perf_counter()
+    width_counts, worst = serve_widths(dev)
+    for name, n in width_counts.items():
+        launches[name] += n
+    log(f"  served widths in {time.perf_counter() - t0:.1f} s; worst kernel-vs-plain |dprob|"
+        f" {worst:.3e}")
+
     with synthetic_dataset() as (tmp, data):
         log("phase harness")
         for name, n in harness(card, tmp, data).items():
@@ -3848,6 +4264,7 @@ def main():
     log("phase datagen")
     for name, n in datagen(dev, card).items():
         launches[name] += n
+
 
     def entry(name, row, err):
         src, repl = REPO_SOURCE[name]

@@ -34,6 +34,7 @@ from videonavqa_tpu.models import get_model as jax_get_model
 from videonavqa_tpu.models.film import film_trunk as jax_film_trunk
 from videonavqa_tpu.train.step import _forward as jax_forward
 from videonavqa_tpu.utils.checkpoint import flatten_tree
+from videonavqa_tpu_torch.kernels import int8_matmul as int8_mod
 from videonavqa_tpu_torch.models import ModelConfig, get_model
 from videonavqa_tpu_torch.models import film as film_mod
 from videonavqa_tpu_torch.train.step import make_eval_step
@@ -197,16 +198,20 @@ def test_int8_fused_row_gate_value():
 
 @pytest.mark.parametrize("channels", [1088, 2048, 4096])
 def test_int8_trunk_wider_than_the_fused_kernel_is_refused_at_set_up(channels):
-    """Off the CPU a trunk whose 1x1 conv the kernel does not take (K over
-    1024, or not a multiple of 128) is refused when the trunk is set up, not
-    at its first launch; on the CPU the plain version takes any width."""
+    """The fused kernel takes every trunk width (K over 1024, or not a
+    multiple of 128, on its streamed route): the trunk set-up refuses none
+    and routes every 1x1 conv through the kernel's wrapper, off the CPU as on
+    it, where the wrapper runs the plain version."""
     cfg = ModelConfig(model="film_attn_pt", num_res_block_channels=channels,
                       use_int8_trunk=True, use_pallas_kernels=True)
     state = {"int8_scales": {}, "int8_wq": {}}
-    with pytest.raises(ValueError, match="K <= 1024"):
-        film_mod._trunk_convs({}, state, cfg, 4550, {}, torch.device("meta"))
-    _, block_convs = film_mod._trunk_convs({}, state, cfg, 4550, {}, torch.device("cpu"))
+    _, block_convs = film_mod._trunk_convs({}, state, cfg, 4550, {})
     assert block_convs is not None
+    m = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):   # the wrapper's device check, on meta
+        int8_mod.int8_matmul_2d(m(4, channels, dtype=torch.bfloat16),
+                                m(channels, channels, dtype=torch.int8), m(channels),
+                                m(channels), m())
 
 
 def test_eval_step_widens_fp8_features():

@@ -263,16 +263,17 @@ def test_wrappers_refuse_non_cuda_non_cpu_tensors():
         lstm_mod.lstm(m(5, 3, 16), m(16, 4), m(16), m(3, dtype=torch.int32), m(3, 4), m(3, 4))
 
 
-@pytest.mark.parametrize("B,H", [(33, 64), (4, 6)])
+@pytest.mark.parametrize("B,H", [(33, 64), (4, 6), (2, 60000)])
 def test_lstm_kernel_refuses_shapes_it_does_not_take(B, H):
-    """Off the CPU, a hidden size other than 128 must be a multiple of 4 (the
-    wide kernel moves h and W_hh 16 bytes at a time): refused with an error,
-    not handed to the plain version. Any batch passes the shape checks (the
-    wrapper runs a batch wider than 32 rows as launches of 32 rows): B 33 at
-    hidden 64 reaches the input checks, which on meta tensors raise only for
-    the device."""
+    """Off the CPU the wide kernel takes any batch (its C entry runs it as
+    launches of as many rows as shared memory holds) and any hidden size
+    (zero-padded to a multiple of 4, as it moves h and W_hh 16 bytes at a
+    time): B 33 at hidden 64 and B 4 at hidden 6 reach the input checks,
+    which on meta tensors raise only for the device. What the card cannot
+    hold, a row of h past one SM's shared memory, is refused with an error,
+    not handed to the plain version."""
     m = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device="meta")
-    match = "CUDA" if H % 4 == 0 else "hidden size other than 128"
+    match = "does not fit" if H == 60000 else "CUDA"
     with pytest.raises(ValueError, match=match):
         lstm_mod.lstm(m(5, B, 4 * H), m(4 * H, H), m(4 * H), m(B, dtype=torch.int32),
                       m(B, H), m(B, H))
@@ -388,14 +389,15 @@ def test_attn_tail_padding_leaves_the_output_unchanged(A):
 
 
 @pytest.mark.parametrize("A,T,error", [(64, 35, "CUDA"), (200, 100, "CUDA"),
-                                       (257, 35, "at most 256"), (128, 0, "bad shape")])
+                                       (257, 35, "CUDA"), (2046, 35, "CUDA"),
+                                       (60000, 35, "does not fit"), (128, 0, "bad shape")])
 def test_attn_tail_kernel_takes_any_size_it_can_hold(A, T, error):
-    """Off the CPU the kernel takes any attention size up to 256 (padded to
-    128 or 256) and any frame count its shared memory holds (its library
-    says how many; chip_smoke.py checks the limit on the card): on meta
-    tensors such a shape reaches the input checks, which raise only for the
-    device; a larger attention size or no frame is refused before any
-    launch."""
+    """Off the CPU the kernel takes any attention size (padded to 128 or 256
+    up to 256, above to a multiple of 4 for the wide chain) and any frame
+    count its shared memory holds (its library says how many; chip_smoke.py
+    checks the limit on the card): on meta tensors such a shape reaches the
+    input checks, which raise only for the device; a row of h past one SM's
+    shared memory, or no frame, is refused before any launch."""
     m = lambda *shape: torch.empty(shape, device="meta")
     params = {"fc_hidden_attn": {"weight": m(1, A), "bias": m(1)},
               "lstm_attn": {"w_ih": m(4 * A, A), "w_hh": m(4 * A, A), "b_ih": m(4 * A),
@@ -460,10 +462,16 @@ def test_vgg_block1_refuses_other_dtypes_and_non_cuda_tensors():
 
 
 def test_int8_matmul_kernel_refuses_a_reduction_deeper_than_its_panel():
-    """The kernel keeps two int8 row panels [64, K] in shared memory: K over
-    1024 is refused off the CPU, not handed to the plain version."""
+    """The panel route keeps two int8 row panels [64, K] in shared memory, so
+    it takes K up to 1024 in multiples of 128 (N too); a deeper reduction or
+    another width goes to the streamed route, not to the plain version: on
+    meta tensors it reaches the input checks, which raise only for the
+    device."""
+    assert int8_mod.panel_route(1024, 1024) and int8_mod.panel_route(128, 128)
+    assert not int8_mod.panel_route(128, 2048) and not int8_mod.panel_route(200, 256)
+    assert not int8_mod.panel_route(256, 48)
     m = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device="meta")
-    with pytest.raises(ValueError, match="K <= 1024"):
+    with pytest.raises(ValueError, match="CUDA"):
         int8_mod.int8_matmul_2d(m(4, 2048, dtype=torch.bfloat16), m(128, 2048, dtype=torch.int8),
                                 m(128), m(128), m())
 
@@ -476,9 +484,12 @@ def test_film_reencode_kernel_refuses_more_batch_rows_than_its_grid():
 
 
 def test_film_attn_refuses_a_hidden_size_its_reencode_kernel_does_not_take():
-    """film_attn_pt with the kernels on and hidden_size != 128 is refused when
-    its forward sets up its kernels off the CPU, before any kernel runs, not
-    at the re-encode's first launch; on the CPU it runs the plain versions."""
+    """film_attn_pt with the kernels on takes any hidden size the card can
+    hold: at hidden 8 its forward off the CPU reaches the re-encode kernel
+    (padded to 128), whose input checks raise on meta tensors only for the
+    device. What the card cannot hold (a row of h past one SM's shared
+    memory, more batch rows than the cluster chain's grid) is refused by the
+    shape check that the forward runs before any kernel."""
     from videonavqa_tpu_torch.models import ModelConfig, get_model
     from videonavqa_tpu_torch.train.step import forward
 
@@ -491,11 +502,14 @@ def test_film_attn_refuses_a_hidden_size_its_reencode_kernel_does_not_take():
     m = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device="meta")
     batch = {"v_features": m(2, 3, 10, 13, 4), "v_len": m(2, dtype=torch.int32),
              "question": m(2, 5, dtype=torch.int32), "q_len": m(2, dtype=torch.int32)}
-    with pytest.raises(ValueError, match="hidden size 128"):
+    with pytest.raises(ValueError, match="CUDA"):
         forward(spec, cfg, params, state, batch)
-    with pytest.raises(ValueError, match="hidden size 128"):
-        reenc_mod.check_shape(2, 8)
-    reenc_mod.check_shape(2, 128)
+    for H in (8, 128, 300, 2048):
+        reenc_mod.check_shape(2, H)
+    with pytest.raises(ValueError, match="does not fit"):
+        reenc_mod.check_shape(2, 60000)
+    with pytest.raises(ValueError, match="batch rows"):
+        reenc_mod.check_shape(65536, 8)
 
 
 @pytest.mark.parametrize("grad_enabled, requires_grad, error", [

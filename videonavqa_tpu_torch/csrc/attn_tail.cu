@@ -36,13 +36,18 @@
 //     with no barrier a step.
 // AP, the hidden size the kernel runs, is 128 or 256; the wrapper zero-pads
 // a smaller attention size to it, which is exact (a padded unit's weights,
-// biases and feature column are zero, so its c and h stay 0).
+// biases and feature column are zero, so its c and h stay 0). Above 256,
+// W_hh (16 AP^2 bytes, 4 MB at 512) no longer fits a cluster's registers:
+// attn_tail_wide forms the context and the input gates in two small
+// kernels and runs the steps on the wide chain of lstm_wide.cuh, with AP
+// zero-padded to a multiple of 4.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "lstm_cluster.cuh"
+#include "lstm_wide.cuh"
 
 namespace {
 
@@ -79,6 +84,42 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// The row's context into ctx[0..AP), by all the block's threads: the
+// attention weights (the plain version's at v = 0) into co_s [T] from
+// scores + mask in sm_s [T], then the weighted sum of the row's features,
+// read once.
+__device__ __forceinline__ void context(const float* __restrict__ feats,
+                                        const float* __restrict__ scores,
+                                        const float* __restrict__ mask, int b, int T, int AP,
+                                        float n_phantom, float* sm_s, float* co_s, float* ctx) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  for (int i = t; i < T; i += blockDim.x)
+    sm_s[i] = scores[(size_t)b * T + i] + mask[(size_t)b * T + i];
+  __syncthreads();
+  if (warp == 0) {   // the weights, the plain version's at v = 0
+    float mx = -INFINITY;
+    for (int f = lane; f < T; f += 32) mx = fmaxf(mx, sm_s[f]);
+    const float m = n_phantom > 0.f ? fmaxf(warp_max(mx), 0.f) : warp_max(mx);
+    float se = 0.f;
+    for (int f = lane; f < T; f += 32) {
+      const float e = expf(sm_s[f] - m);
+      co_s[f] = e;
+      se += e;
+    }
+    const float denom = warp_sum(se) + (n_phantom > 0.f ? n_phantom * expf(0.f - m) : 0.f);
+    for (int f = lane; f < T; f += 32) co_s[f] = co_s[f] / denom;
+  }
+  __syncthreads();
+  const float* f_b = feats + (size_t)b * T * AP;   // the row's features, read once
+  for (int k = t; k < AP; k += blockDim.x) {       // the context
+    float x = 0.f;
+#pragma unroll 8
+    for (int f = 0; f < T; ++f) x = fmaf(co_s[f], __ldg(f_b + (size_t)f * AP + k), x);
+    ctx[k] = x;
+  }
+  __syncthreads();
 }
 
 // The four W rows g AP + u of one unit, the thread's 16 columns
@@ -143,34 +184,10 @@ attn_tail_kernel(const float* __restrict__ feats,   // [B, T, AP]
 
   const int b = blockIdx.y;
   const uint32_t rank = cluster_rank();
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int t = threadIdx.x;
   const int ul = t / KS, j = t % KS, u = rank * U + ul;
 
-  for (int i = t; i < T; i += P::THREADS)
-    sm_s[i] = scores[(size_t)b * T + i] + mask[(size_t)b * T + i];
-  __syncthreads();
-  if (warp == 0) {   // the weights, the plain version's at v = 0
-    float mx = -INFINITY;
-    for (int f = lane; f < T; f += 32) mx = fmaxf(mx, sm_s[f]);
-    const float m = n_phantom > 0.f ? fmaxf(warp_max(mx), 0.f) : warp_max(mx);
-    float se = 0.f;
-    for (int f = lane; f < T; f += 32) {
-      const float e = expf(sm_s[f] - m);
-      co_s[f] = e;
-      se += e;
-    }
-    const float denom = warp_sum(se) + (n_phantom > 0.f ? n_phantom * expf(0.f - m) : 0.f);
-    for (int f = lane; f < T; f += 32) co_s[f] = co_s[f] / denom;
-  }
-  __syncthreads();
-  const float* f_b = feats + (size_t)b * T * AP;   // the row's features, read once
-  for (int k = t; k < AP; k += P::THREADS) {       // the context
-    float x = 0.f;
-#pragma unroll 8
-    for (int f = 0; f < T; ++f) x = fmaf(co_s[f], __ldg(f_b + (size_t)f * AP + k), x);
-    ctx_s[k] = x;
-  }
-  __syncthreads();
+  context(feats, scores, mask, b, T, AP, n_phantom, sm_s, co_s, ctx_s);
   float gin[4];   // the unit's input gates: ctxt W_ih^T + b_ih + b_hh
   {
     float w[4][KPT];
@@ -246,13 +263,58 @@ int launch(int B, int T, cudaStream_t stream, const float* feats, const float* s
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------ attention above 256
+// The context of each row (one block a row), then the input gates
+// gin [B, 4 AP] = ctx W_ih^T + b_ih + b_hh (one warp a gate row, over all
+// batch rows), then the steps: an LSTM with the constant input gin on the
+// wide chain of lstm_wide.cuh (hidden units over all SMs, one grid barrier a
+// step), its outputs written straight into hs [B, S, AP].
+
+constexpr int WIDE_THREADS = 256;
+
+__global__ void __launch_bounds__(WIDE_THREADS)
+attn_tail_context_kernel(const float* __restrict__ feats, const float* __restrict__ scores,
+                         const float* __restrict__ mask, float* __restrict__ ctx, int T, int AP,
+                         float n_phantom) {
+  extern __shared__ float sm_s[];   // [T] scores + mask, then [T] attention weights
+  context(feats, scores, mask, blockIdx.x, T, AP, n_phantom, sm_s, sm_s + T,
+          ctx + (size_t)blockIdx.x * AP);
+}
+
+__global__ void __launch_bounds__(WIDE_THREADS)
+attn_tail_gates_kernel(const float* __restrict__ ctx, const float* __restrict__ w_ih,
+                       const float* __restrict__ bias, float* __restrict__ gin, int B, int AP) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * (WIDE_THREADS / 32) + (threadIdx.x >> 5);
+  if (r >= 4 * AP) return;
+  const float4* w = reinterpret_cast<const float4*>(w_ih + (size_t)r * AP);
+  for (int b = 0; b < B; ++b) {
+    const float4* x = reinterpret_cast<const float4*>(ctx + (size_t)b * AP);
+    float a = 0.f;
+    for (int k = lane; k < AP / 4; k += 32) {
+      const float4 wv = __ldg(w + k), xv = x[k];
+      a = fmaf(xv.x, wv.x, a);
+      a = fmaf(xv.y, wv.y, a);
+      a = fmaf(xv.z, wv.z, a);
+      a = fmaf(xv.w, wv.w, a);
+    }
+    a = warp_sum(a);
+    if (lane == 0) gin[(size_t)b * 4 * AP + r] = a + bias[r];
+  }
+}
+
+LSTM_WIDE_KERNEL(attn_tail_wide_kernel, true)
+
 }  // namespace
 
 // The most frames the kernel holds in shared memory at hidden size ``hidden``
-// (128 or 256; -1 for another): 28,862 at 128, 28,670 at 256.
+// (-1 for a size it does not run: not 128 or 256, and above 256 no multiple
+// of 4): 28,862 at 128, 28,670 at 256, 29,056 above 256 (the context
+// kernel's scores + mask and weights).
 extern "C" int attn_tail_max_frames(int hidden) {
   if (hidden == 128) return max_frames<128>();
   if (hidden == 256) return max_frames<256>();
+  if (hidden > 256 && hidden % 4 == 0) return SMEM_LIMIT / 8;
   return -1;
 }
 
@@ -273,4 +335,67 @@ extern "C" int attn_tail(const void* feats, const void* scores, const void* mask
   if (hidden == 128) return run(launch<128>);
   if (hidden == 256) return run(launch<256>);
   return (int)cudaErrorInvalidValue;
+}
+
+// The same above attention size 256: feats [B, T, AP], scores and mask
+// [B, T], w_ih and w_hh [4 AP, AP], bias [4 AP] (b_ih + b_hh), all f32, AP
+// (``hidden``) a multiple of 4 -> hs [B, S, AP] f32. lens [B] int32 holds S
+// in every row; scratch is f32, zeroed: ctx [B, AP], gin [B, 4 AP], zeros
+// [4 AP + B AP] (b_hh and h0), c [B, AP], h_f [B, AP] and h_steps [2, rows,
+// AP] (rows: lstm_wide::device_rows(AP)). Two launches, then one a slice of rows
+// (*launched counts them all). Returns the CUDA error of the first launch
+// that failed (0 on success; cudaErrorInvalidValue for a shape it does not
+// take).
+extern "C" int attn_tail_wide(const void* feats, const void* scores, const void* mask,
+                              const void* w_ih, const void* w_hh, const void* bias,
+                              const void* lens, void* scratch, void* hs, int B, int T, int S,
+                              int hidden, float n_phantom, int* launched, void* stream) {
+  *launched = 0;
+  const int AP = hidden, rows = lstm_wide::device_rows(AP);
+  if (B < 1 || T < 1 || S < 1 || AP <= 256 || AP % 4 != 0 || T > SMEM_LIMIT / 8 || rows < 1)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  float* ctx = (float*)scratch;
+  float* gin = ctx + (size_t)B * AP;
+  float* zeros = gin + (size_t)B * 4 * AP;   // b_hh (folded into gin), then h0
+  float* c = zeros + (size_t)4 * AP + (size_t)B * AP;
+  float* h_f = c + (size_t)B * AP;
+  float* h_steps = h_f + (size_t)B * AP;
+  const int smem = T * 2 * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(attn_tail_context_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  attn_tail_context_kernel<<<B, WIDE_THREADS, smem, st>>>(
+      (const float*)feats, (const float*)scores, (const float*)mask, ctx, T, AP, n_phantom);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  ++*launched;
+  const int per_block = WIDE_THREADS / 32;
+  attn_tail_gates_kernel<<<(4 * AP + per_block - 1) / per_block, WIDE_THREADS, 0, st>>>(
+      ctx, (const float*)w_ih, (const float*)bias, gin, B, AP);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  ++*launched;
+  for (int s = 0; s < B; s += rows) {
+    lstm_wide::Args a = {};
+    a.xw = gin + (size_t)s * 4 * AP;
+    a.xw_t = 0;   // the same input at every step
+    a.xw_b = 4 * AP;
+    a.w_hh = (const float*)w_hh;
+    a.b_hh = zeros;
+    a.lens = (const int*)lens + s;
+    a.h0 = zeros + 4 * AP + (size_t)s * AP;
+    a.c0 = c + (size_t)s * AP;
+    a.outs = (float*)hs + (size_t)s * S * AP;
+    a.out_t = AP;
+    a.out_b = S * AP;
+    a.h_f = h_f + (size_t)s * AP;
+    a.c_f = c + (size_t)s * AP;
+    a.h_steps = h_steps;
+    a.T = S;
+    a.B = B - s < rows ? B - s : rows;
+    a.H = AP;
+    if ((err = lstm_wide::launch<attn_tail_wide_kernel_kernels>(a, st)) != cudaSuccess)
+      return (int)err;
+    ++*launched;
+  }
+  return 0;
 }

@@ -53,6 +53,18 @@
 // panel (quantized once, exchanged through distributed shared memory by
 // per-thread stores, then by the copy engine), one 128 x 128 tile a block;
 // its phases ran one after another in the one block an SM holds.
+//
+// Every other width takes the streamed route (int8_matmul_streamed): two
+// panels [64, K] fit shared memory only up to K = 1,024, so above that, and
+// where N or K is no multiple of 128, one small kernel quantizes x into an
+// int8 copy xq [M, K'] in device memory (K' the next multiple of 128, the
+// columns past K zero), and the product kernel (A_TMA) streams xq's
+// [64, 128] tiles by TMA beside the weight tiles through the same ring,
+// with the same epilogue; the wrapper zero-pads wq, comb and bias to
+// multiples of 128 and drops the padded outputs. Zeros quantize to 0 and
+// add nothing to an int32 sum, so y and yq stay bit-equal to the plain
+// version's. The route moves xq out and back in (M K' bytes each way) that
+// the panel route keeps on chip; K is bounded only by device memory.
 
 #include <cuda.h>   // CUtensorMap and its enums; the encoder is looked up from libcuda at run time
 #include <cuda_bf16.h>
@@ -70,10 +82,16 @@ constexpr int THREADS = 3 * 128;          // 2 consumer warpgroups, then the pro
 constexpr int QUANT_THREADS = 96;         // warps 9-11 quantize the coming panels
 constexpr uint32_t TILE_BYTES = BN * BK;  // 16 KB
 constexpr int STAGE_BYTES = BM * BN * 2;  // a consumer's staged bf16 tile (16 KB)
-constexpr size_t smem_bytes(int K) {
-  return 2 * (size_t)BM * K + (size_t)STAGES * TILE_BYTES + 2 * (size_t)STAGE_BYTES
+constexpr uint32_t A_TILE_BYTES = BM * BK;  // streamed: an int8 tile of x (8 KB)
+// streamed (A_TMA): no panels; the ring holds an x tile beside each weight tile
+constexpr size_t smem_bytes(int K, bool a_tma) {
+  return (a_tma ? 0 : 2 * (size_t)BM * K)
+       + (size_t)STAGES * (TILE_BYTES + (a_tma ? A_TILE_BYTES : 0)) + 2 * (size_t)STAGE_BYTES
        + (2 * STAGES + 6) * sizeof(uint64_t) + 1024;
 }
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 __device__ __forceinline__ void load16(const float* p, float (&v)[16]) {
 #pragma unroll
@@ -322,9 +340,12 @@ __device__ void quantize_panel(const Tin* __restrict__ x, uint8_t* panel, int m0
   }
 }
 
-template <typename Tin, typename Tout>
+// A_TMA (streamed): x comes pre-quantized, xq [M, K] int8, its [64, 128]
+// tiles brought in by TMA beside the weight tiles; the quantizer warps idle.
+template <typename Tin, typename Tout, bool A_TMA>
 __global__ void __launch_bounds__(THREADS, 1)
 int8_matmul_kernel(const __grid_constant__ CUtensorMap wmap,  // wq [N, K] int8, 128 x 128 boxes
+                   const __grid_constant__ CUtensorMap amap,  // A_TMA: xq [M, K], 128 x 64 boxes
                    const Tin* __restrict__ x,        // [M, K]
                    const float* __restrict__ comb,   // [N]
                    const float* __restrict__ bias,   // [N]
@@ -336,9 +357,10 @@ int8_matmul_kernel(const __grid_constant__ CUtensorMap wmap,  // wq [N, K] int8,
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
-  const int KB = K / BK, NT = N / BN, panel_bytes = BM * K;
+  const int KB = K / BK, NT = N / BN, panel_bytes = A_TMA ? 0 : BM * K;
   uint8_t* panels = smem;                                 // [2][KB][BM][128], swizzled
-  uint8_t* ring = smem + 2 * panel_bytes;                 // [STAGES][BN][128], swizzled by TMA
+  uint8_t* ring_a = smem + 2 * panel_bytes;               // A_TMA: [STAGES][BM][128], by TMA
+  uint8_t* ring = ring_a + (A_TMA ? STAGES * A_TILE_BYTES : 0);  // [STAGES][BN][128], by TMA
   uint8_t* staging = ring + STAGES * TILE_BYTES;          // [2][STAGE_BYTES]
   uint64_t* full = reinterpret_cast<uint64_t*>(staging + 2 * STAGE_BYTES);
   uint64_t* empty = full + STAGES;
@@ -366,8 +388,10 @@ int8_matmul_kernel(const __grid_constant__ CUtensorMap wmap,  // wq [N, K] int8,
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  quantize_panel(x, panels, p0 * BM, M, K, sx, rsx, tid, THREADS);   // the first panel, by all
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  if constexpr (!A_TMA) {   // the first panel, by all
+    quantize_panel(x, panels, p0 * BM, M, K, sx, rsx, tid, THREADS);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
   __syncthreads();
 
   if (warp >= 8) {
@@ -378,11 +402,14 @@ int8_matmul_kernel(const __grid_constant__ CUtensorMap wmap,  // wq [N, K] int8,
           for (int kb = 0; kb < KB; ++kb, ++slot) {
             const int s = slot % STAGES;
             if (slot >= STAGES) mbar_wait(&empty[s], ((slot / STAGES) & 1) ^ 1);
-            mbar_expect_tx(&full[s], TILE_BYTES);
+            mbar_expect_tx(&full[s], TILE_BYTES + (A_TMA ? A_TILE_BYTES : 0));
+            if constexpr (A_TMA)
+              tma_load_2d(ring_a + s * A_TILE_BYTES, &amap, &full[s], kb * BK,
+                          ((first + i) / NT) * BM);
             tma_load_2d(ring + s * TILE_BYTES, &wmap, &full[s], kb * BK, ((first + i) % NT) * BN);
           }
       }
-    } else {           // the quantizers: panel l into buffer l % 2
+    } else if constexpr (!A_TMA) {   // the quantizers: panel l into buffer l % 2
       for (int l = 1; l < n_panels; ++l) {
         const int b = l & 1;
         if (l >= 2) mbar_wait(&pempty[b], ((l >> 1) + 1) & 1);
@@ -407,12 +434,14 @@ int8_matmul_kernel(const __grid_constant__ CUtensorMap wmap,  // wq [N, K] int8,
   for (int i = w; i < items; i += 2) {
     const int item = first + i, l = item / NT - p0, n0 = (item % NT) * BN;
     const int m0 = (p0 + l) * BM;
-    if (l > cur) {
-      for (; cur < l; ++cur)
-        if (t == 0) mbar_arrive(&pempty[cur & 1]);
-      __syncwarp();
+    if constexpr (!A_TMA) {
+      if (l > cur) {
+        for (; cur < l; ++cur)
+          if (t == 0) mbar_arrive(&pempty[cur & 1]);
+        __syncwarp();
+      }
+      if (l > 0) mbar_wait(&pfull[l & 1], ((l >> 1) + ((l & 1) ^ 1)) & 1);
     }
-    if (l > 0) mbar_wait(&pfull[l & 1], ((l >> 1) + ((l & 1) ^ 1)) & 1);
 
     const int nth = i >> 1;   // this warpgroup's nth item
     if (w == 1) mbar_wait(&order[1], nth & 1);
@@ -428,7 +457,8 @@ int8_matmul_kernel(const __grid_constant__ CUtensorMap wmap,  // wq [N, K] int8,
       __syncwarp();
       fence_acc(acc);
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-      const uint32_t a = a_base + kb * (BM * 128), b = smem_u32(ring + s * TILE_BYTES);
+      const uint32_t a = A_TMA ? smem_u32(ring_a + s * A_TILE_BYTES) : a_base + kb * (BM * 128);
+      const uint32_t b = smem_u32(ring + s * TILE_BYTES);
 #pragma unroll
       for (int kk = 0; kk < BK / 32; ++kk)
         wgmma_s8(acc, sw128_desc(a + 32 * kk), sw128_desc(b + 32 * kk));
@@ -493,13 +523,14 @@ EncodeTiled encoder() {
   return fn;
 }
 
-template <typename Tin, typename Tout>
-int launch(const CUtensorMap& wmap, const void* x, const void* comb, const void* bias,
-           const void* sx, const void* nx, void* y, void* yq, int M, int N, int K, int relu,
-           int stored, cudaStream_t stream) {
-  const auto kernel = int8_matmul_kernel<Tin, Tout>;
+template <typename Tin, typename Tout, bool A_TMA>
+int launch(const CUtensorMap& wmap, const CUtensorMap& amap, const void* x, const void* comb,
+           const void* bias, const void* sx, const void* nx, void* y, void* yq, int M, int N,
+           int K, int relu, int stored, cudaStream_t stream) {
+  const auto kernel = int8_matmul_kernel<Tin, Tout, A_TMA>;
+  const size_t smem = smem_bytes(K, A_TMA);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem_bytes(K));
+                                         (int)smem);
   if (err != cudaSuccess) return (int)err;
   int device = 0, sms = 0;
   if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
@@ -507,10 +538,65 @@ int launch(const CUtensorMap& wmap, const void* x, const void* comb, const void*
     return (int)err;
   const long long items = (long long)((M + BM - 1) / BM) * (N / BN);
   const int grid = (int)(items < sms ? items : sms);
-  kernel<<<grid, THREADS, smem_bytes(K), stream>>>(wmap, (const Tin*)x, (const float*)comb,
+  kernel<<<grid, THREADS, smem, stream>>>(wmap, amap, (const Tin*)x, (const float*)comb,
                                           (const float*)bias, (const float*)sx, (const float*)nx,
                                           (Tout*)y, (int8_t*)yq, M, N, K, relu, stored);
   return (int)cudaGetLastError();
+}
+
+// The streamed route's first kernel: x [M, Kx] quantized into xq [M, K]
+// int8 (K >= Kx; the columns from Kx on are zeros, as quantized zeros are),
+// 16 values a thread and pass, with the panels' arithmetic.
+template <typename Tin>
+__global__ void __launch_bounds__(256)
+int8_quantize_kernel(const Tin* __restrict__ x, const float* __restrict__ sx_p,
+                     uint8_t* __restrict__ xq, int M, int Kx, int K) {
+  const float sx = *sx_p, rsx = __frcp_rn(sx);
+  const int row_chunks = K / 16;
+  const long long chunks = (long long)M * row_chunks;
+  for (long long ch = (long long)blockIdx.x * blockDim.x + threadIdx.x; ch < chunks;
+       ch += (long long)gridDim.x * blockDim.x) {
+    const long long r = ch / row_chunks;
+    const int k0 = (int)(ch % row_chunks) * 16;
+    float v[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      v[i] = k0 + i < Kx ? to_float(x[r * Kx + k0 + i]) : 0.f;
+    *reinterpret_cast<uint4*>(xq + r * K + k0) =
+        make_uint4(quant4(v, sx, rsx), quant4(v + 4, sx, rsx), quant4(v + 8, sx, rsx),
+                   quant4(v + 12, sx, rsx));
+  }
+}
+
+// An int8 [rows, K] tensor map of boxes [box_rows, 128], 128-byte swizzle.
+bool encode_map(CUtensorMap* map, const void* base, int rows, int K, int box_rows) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)K};
+  const cuuint32_t box[2] = {BK, (cuuint32_t)box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides,
+                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The panel route's product kernel at the four dtype pairs.
+int launch_panels(const CUtensorMap& wmap, const void* x, int x_f32, const void* comb,
+                  const void* bias, const void* sx, const void* nx, void* y, int y_f32, void* yq,
+                  int M, int N, int K, int relu, int stored, cudaStream_t s) {
+  using bf16 = __nv_bfloat16;
+  const CUtensorMap none = {};
+  if (x_f32)
+    return y_f32 ? launch<float, float, false>(wmap, none, x, comb, bias, sx, nx, y, yq, M, N,
+                                               K, relu, stored, s)
+                 : launch<float, bf16, false>(wmap, none, x, comb, bias, sx, nx, y, yq, M, N,
+                                              K, relu, stored, s);
+  return y_f32 ? launch<bf16, float, false>(wmap, none, x, comb, bias, sx, nx, y, yq, M, N, K,
+                                            relu, stored, s)
+               : launch<bf16, bf16, false>(wmap, none, x, comb, bias, sx, nx, y, yq, M, N, K,
+                                           relu, stored, s);
 }
 
 }  // namespace
@@ -519,34 +605,57 @@ int launch(const CUtensorMap& wmap, const void* x, const void* comb, const void*
 // sx (and nx when yq is not null) f32 scalars on the device -> y [M, N] (bf16,
 // or f32 when y_f32) and optionally yq [M, N] int8, quantized from the f32
 // value or, with yq_stored, from the value y stores. Needs N % 128 == 0,
-// K % 128 == 0, K <= 1024 and 16-byte aligned x and wq. Returns the CUDA
-// error of the launch (0 on success).
+// K % 128 == 0, K <= 1024 (two panels [64, K] in shared memory) and 16-byte
+// aligned x and wq. Returns the CUDA error of the launch (0 on success).
 extern "C" int int8_matmul_fused(const void* x, int x_f32, const void* wq, const void* comb,
                                  const void* bias, const void* sx, const void* nx, void* y,
                                  int y_f32, void* yq, int M, int N, int K, int relu,
                                  int yq_stored, void* stream) {
   if (M < 1 || N < BN || N % BN != 0 || K < BK || K % BK != 0 || K > MAX_K)
     return (int)cudaErrorInvalidValue;
-  const EncodeTiled encode = encoder();
-  if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap wmap;
-  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)N};
-  const cuuint64_t strides[1] = {(cuuint64_t)K};
-  const cuuint32_t box[2] = {BK, BN};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  if (encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(wq), dims, strides, box,
-             elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+  if (!encode_map(&wmap, wq, N, K, BN)) return (int)cudaErrorInvalidValue;
+  return launch_panels(wmap, x, x_f32, comb, bias, sx, nx, y, y_f32, yq, M, N, K, relu,
+                       yq_stored, (cudaStream_t)stream);
+}
+
+// The streamed route, for any other width: x [M, Kx] is quantized into xq
+// [M, K] int8 (scratch; K >= Kx a multiple of 128, the columns from Kx on
+// zero) by one kernel, then the product kernel streams xq's tiles by TMA
+// beside the weight tiles, with no panel in shared memory, so K is bounded
+// only by device memory. wq [N, K], comb and bias [N] come zero-padded to
+// multiples of 128 (the padded outputs are 0 and the caller drops them); y
+// and yq are [M, N]. Two launches. Returns the CUDA error of the first
+// launch that failed (0 on success).
+extern "C" int int8_matmul_streamed(const void* x, int x_f32, int Kx, void* xq, const void* wq,
+                                    const void* comb, const void* bias, const void* sx,
+                                    const void* nx, void* y, int y_f32, void* yq, int M, int N,
+                                    int K, int relu, int yq_stored, void* stream) {
+  if (M < 1 || N < BN || N % BN != 0 || K < BK || K % BK != 0 || Kx < 1 || Kx > K ||
+      ((uintptr_t)xq | (uintptr_t)wq) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
+  int device = 0, sms = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return (int)err;
+  const long long chunks = (long long)M * (K / 16);
+  const int blocks = (int)((chunks + 255) / 256 < 8LL * sms ? (chunks + 255) / 256 : 8LL * sms);
   if (x_f32)
-    return y_f32
-        ? launch<float, float>(wmap, x, comb, bias, sx, nx, y, yq, M, N, K, relu, yq_stored, s)
-        : launch<float, __nv_bfloat16>(wmap, x, comb, bias, sx, nx, y, yq, M, N, K, relu,
-                                       yq_stored, s);
-  return y_f32
-      ? launch<__nv_bfloat16, float>(wmap, x, comb, bias, sx, nx, y, yq, M, N, K, relu,
-                                     yq_stored, s)
-      : launch<__nv_bfloat16, __nv_bfloat16>(wmap, x, comb, bias, sx, nx, y, yq, M, N, K,
-                                             relu, yq_stored, s);
+    int8_quantize_kernel<float><<<blocks, 256, 0, s>>>((const float*)x, (const float*)sx,
+                                                       (uint8_t*)xq, M, Kx, K);
+  else
+    int8_quantize_kernel<__nv_bfloat16><<<blocks, 256, 0, s>>>(
+        (const __nv_bfloat16*)x, (const float*)sx, (uint8_t*)xq, M, Kx, K);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  CUtensorMap wmap, amap;
+  if (!encode_map(&wmap, wq, N, K, BN) || !encode_map(&amap, xq, M, K, BM))
+    return (int)cudaErrorInvalidValue;
+  // the product reads no x: its tiles come from xq by TMA
+  return y_f32 ? launch<__nv_bfloat16, float, true>(wmap, amap, nullptr, comb, bias, sx, nx, y,
+                                                    yq, M, N, K, relu, yq_stored, s)
+               : launch<__nv_bfloat16, __nv_bfloat16, true>(wmap, amap, nullptr, comb, bias, sx,
+                                                            nx, y, yq, M, N, K, relu, yq_stored,
+                                                            s);
 }

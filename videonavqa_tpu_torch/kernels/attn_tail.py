@@ -7,7 +7,8 @@ bytes, bounds it on an H100. The attention weights do not depend on the
 step (the rank-1 projection v shifts every logit and the phantom frames'
 alike, so it cancels in the softmax): the kernel forms the context and the
 input gates once per launch, and a cluster of 8 SMs per batch row runs the
-35 LSTMCell steps (the source note in the .cu file).
+35 LSTMCell steps up to attention size 256; above it, the wide chain over
+all SMs runs them (the source note in the .cu file).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import ctypes
 import torch
 
 from videonavqa_tpu_torch.kernels import _build
+from videonavqa_tpu_torch.kernels import lstm as lstm_kernels
 from videonavqa_tpu_torch.ops.linear import linear
 from videonavqa_tpu_torch.ops.lstm import lstm_cell
 
@@ -24,6 +26,8 @@ launches = 0
 
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
              + [ctypes.c_float, ctypes.c_void_p])
+_WIDE_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+                  + [ctypes.c_float, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
 
 
 def attn_tail_plain(params, feats, scores, mask, num_steps, n_phantom):
@@ -52,8 +56,9 @@ def attn_tail_plain(params, feats, scores, mask, num_steps, n_phantom):
     return torch.stack(hs, dim=1)
 
 
-# The hidden sizes the kernel is built for; a smaller attention size is
-# zero-padded up to the next one.
+# The hidden sizes the cluster kernel is built for; a smaller attention size
+# is zero-padded up to the next one, a larger one to a multiple of 4 for the
+# wide chain.
 KERNEL_SIZES = (128, 256)
 
 
@@ -62,8 +67,8 @@ def padded_size(A):
     for size in KERNEL_SIZES:
         if A <= size:
             return size
-    raise ValueError(f"attn_tail kernel takes an attention size of at most"
-                     f" {KERNEL_SIZES[-1]}, got {A}")
+    lstm_kernels.check_hidden(A)
+    return lstm_kernels.padded_hidden(A)
 
 
 def check_frames(ap, T):
@@ -106,10 +111,11 @@ def attn_tail(params, all_features, scores, mask, num_steps, n_phantom):
 
     params: fc_hidden_attn {'weight' [1, A], 'bias' [1]} and lstm_attn
     {'w_ih' [4A, A], 'w_hh' [4A, A], 'b_ih', 'b_hh' [4A]}. CPU tensors take
-    the plain version; CUDA tensors launch the kernel, which runs A
-    zero-padded to 128 or 256 (A up to 256, any T its shared memory holds:
-    28,862 frames at 128, 28,670 at 256)."""
-    global launches
+    the plain version; CUDA tensors launch the kernel: up to A 256 the
+    cluster kernel, A zero-padded to 128 or 256 (any T its shared memory
+    holds: 28,862 frames at 128, 28,670 at 256); above, the context and
+    gate kernels and the wide chain (A padded to a multiple of 4; 29,056
+    frames)."""
     if all_features.device.type == "cpu":
         return attn_tail_plain(params, all_features, scores, mask, num_steps, n_phantom)
     B, T, A = all_features.shape
@@ -126,10 +132,36 @@ def attn_tail(params, all_features, scores, mask, num_steps, n_phantom):
         _build.require(t, name, torch.float32, shape, dev)
     check_frames(ap, T)
     hs = torch.empty((B, num_steps, ap), dtype=torch.float32, device=dev)
+    launch = _launch_cluster if ap in KERNEL_SIZES else _launch_wide
+    launch(feats, scores, mask, w_ih, w_hh, bias, hs, int(num_steps), float(n_phantom))
+    return hs if ap == A else hs[..., :A]
+
+
+def _launch_cluster(feats, scores, mask, w_ih, w_hh, bias, hs, num_steps, n_phantom):
+    global launches
+    B, T, ap = feats.shape
     fn = _build.function("attn_tail", "attn_tail", _ARGTYPES)
     err = fn(feats.data_ptr(), scores.data_ptr(), mask.data_ptr(), w_ih.data_ptr(),
-             w_hh.data_ptr(), bias.data_ptr(), hs.data_ptr(), B, T, int(num_steps), ap,
-             float(n_phantom), _build.stream_ptr(dev))
+             w_hh.data_ptr(), bias.data_ptr(), hs.data_ptr(), B, T, num_steps, ap, n_phantom,
+             _build.stream_ptr(feats.device))
     _build.check(err, "attn_tail launch")
     launches += 1
-    return hs if ap == A else hs[..., :A]
+
+
+def _launch_wide(feats, scores, mask, w_ih, w_hh, bias, hs, num_steps, n_phantom):
+    global launches
+    B, T, ap = feats.shape
+    dev = feats.device
+    lens = torch.full((B,), num_steps, dtype=torch.int32, device=dev)
+    # ctx, gin, zeros (b_hh, h0), c, h_f, h_steps; zeroed
+    rows = max(min(lstm_kernels.wide_rows(ap, dev), B), 1)
+    scratch = torch.zeros(B * ap * 8 + 4 * ap + 2 * rows * ap, dtype=torch.float32,
+                          device=dev)
+    launched = ctypes.c_int(0)
+    fn = _build.function("attn_tail", "attn_tail_wide", _WIDE_ARGTYPES)
+    err = fn(feats.data_ptr(), scores.data_ptr(), mask.data_ptr(), w_ih.data_ptr(),
+             w_hh.data_ptr(), bias.data_ptr(), lens.data_ptr(), scratch.data_ptr(),
+             hs.data_ptr(), B, T, num_steps, ap, n_phantom, ctypes.byref(launched),
+             _build.stream_ptr(dev))
+    launches += launched.value
+    _build.check(err, "attn_tail wide launch")

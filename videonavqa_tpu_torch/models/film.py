@@ -38,7 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from videonavqa_tpu_torch.kernels.attn_tail import attn_tail, attn_tail_plain
 from videonavqa_tpu_torch.kernels.film_reencode import (
     check_shape as check_reencode_shape, film_reencode, film_reencode_plain)
-from videonavqa_tpu_torch.kernels.int8_matmul import check_shape, matmul_int8_fused
+from videonavqa_tpu_torch.kernels.int8_matmul import matmul_int8_fused
 from videonavqa_tpu_torch.models.base import DTYPES, register_model
 from videonavqa_tpu_torch.ops import initializers as init
 from videonavqa_tpu_torch.ops.conv import conv2d
@@ -82,10 +82,9 @@ def init_film_trunk(gen, cfg):
     return params, {"bn_init": bn_state}
 
 
-def _trunk_convs(params, state, cfg, rows, new_state, device, train=False):
+def _trunk_convs(params, state, cfg, rows, new_state, train=False):
     """(conv, block_convs) of the trunk's mode; block_convs is None unless the
-    fused int8 1x1 kernel runs. Off the CPU, a trunk whose width the kernel
-    does not take is refused here, before any conv runs. Training takes the
+    fused int8 1x1 kernel runs (at any trunk width). Training takes the
     plain convs: no calibration and no int8."""
     dtype = DTYPES[cfg.compute_dtype]
     if train:
@@ -118,9 +117,6 @@ def _trunk_convs(params, state, cfg, rows, new_state, device, train=False):
 
     if not (cfg.use_pallas_kernels and rows <= INT8_FUSED_MAX_ROWS):
         return conv, None
-    if device.type != "cpu":
-        ch = cfg.num_res_block_channels
-        check_shape(rows, ch, ch)
     # the JAX package's route at the global batch's count
     requant_stored = batch_rows(rows)[0] > INT8_REQUANT_F32_MAX_ROWS
 
@@ -148,8 +144,7 @@ def film_trunk(params, state, feats, film_values, frame_mask, cfg, *, train=Fals
     ch = cfg.num_res_block_channels
     new_state = dict(state)
     conv, block_convs = _trunk_convs(params, state, cfg,
-                                     B * T * feats.shape[2] * feats.shape[3], new_state,
-                                     feats.device, train)
+                                     B * T * feats.shape[2] * feats.shape[3], new_state, train)
     if block_convs is None:
         def block_convs(k, x, p1x1, p3x3):
             res = torch.relu(conv(p1x1, x, f"conv1x1_{k}"))
@@ -221,8 +216,9 @@ def film_values_over_frames(params, q, q_lens, num_frames, cfg, *, padding_idx=N
 
 
 def _check_reencode(cfg, q, use_kernels):
-    """Off the CPU, refuse a re-encode shape the kernel does not take before
-    any kernel runs (the BoW encoder runs none)."""
+    """Off the CPU, refuse a re-encode shape the card cannot hold (more than
+    65,535 batch rows up to hidden size 128, or a row of h past one SM's
+    shared memory) before any kernel runs (the BoW encoder runs none)."""
     if use_kernels and cfg.q_encoder == "lstm" and q.device.type != "cpu":
         check_reencode_shape(q.shape[0], cfg.hidden_size)
 
@@ -288,8 +284,8 @@ def init_film_attn(gen, cfg, device):
 def apply_film_attn(params, state, batch, cfg, *, train=False, generator=None):
     """batch (see models/base.py) -> (logits [B, num_classes], new_state).
     The eval forward runs the kernels where ``cfg.use_pallas_kernels`` asks
-    for them; off the CPU a re-encode shape its kernel does not take is
-    refused here, before any kernel runs. The train forward runs none."""
+    for them; off the CPU a re-encode shape the card cannot hold is refused
+    here, before any kernel runs. The train forward runs none."""
     feats, v_lens = batch["v_features"], batch["v_len"]
     q, q_lens = batch["question"], batch["q_len"]
     B, T = feats.shape[:2]
