@@ -50,7 +50,7 @@ from videonavqa_tpu_torch.stem import stem_features
 from videonavqa_tpu_torch.train import step
 from videonavqa_tpu_torch.utils import checkpoint as ckpt
 from videonavqa_tpu_torch.utils import torch_import as ti
-from videonavqa_tpu_torch.utils.logging import MetricsLogger, StepTimer, maybe_profile
+from videonavqa_tpu_torch.utils.logging import MetricsLogger, maybe_profile
 
 from test_torch_train import (
     GOLDEN_ATOL, GOLDEN_TIGHT_ATOL, NOISE_LEAVES, SMALL, _batch, _max_diff, _t,
@@ -594,11 +594,6 @@ def test_checkpoint_refuses_a_leaf_of_another_shape(tmp_path):
 
 
 def test_step_timer_and_profile_trace(tmp_path):
-    timer = StepTimer(skip=1)
-    for _ in range(3):
-        timer.start()
-        assert timer.stop("cpu") >= 0.0
-    assert timer.count == 3 and timer.mean_ms >= 0.0
     with maybe_profile(str(tmp_path / "trace")):
         torch.ones(4).sum()
     traces = os.listdir(tmp_path / "trace")

@@ -10,7 +10,9 @@ the current stream waits on its event (a ``wait_stream`` on the side stream
 would also wait for the copies of the batches behind it), and each device
 tensor is marked as used on the current stream (``record_stream``), so the
 allocator does not hand its memory out again while the step still reads
-it. On the CPU a batch is moved with a plain ``.to(device)``.
+it. On the CPU a batch is moved with a plain ``.to(device)``. While tracing is
+on (``utils/logging.py``), each batch's ``prepare``, pinning and copy
+enqueue is a ``prefetch.pin`` span, in the consumer's thread.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import queue as queue_mod
 import threading
 
 import torch
+
+from videonavqa_tpu_torch.utils.logging import span
 
 
 def host_prefetch(batch_iter, *, depth: int = 2):
@@ -54,14 +58,16 @@ def device_prefetch(batch_iter, prepare, device, *, depth: int = 2):
     side = torch.cuda.Stream(device) if device.type == "cuda" else None
 
     def start(item):
-        host, *rest = prepare(item)
-        if side is None:
-            return {k: v.to(device) for k, v in host.items()}, None, rest
-        with torch.cuda.stream(side):
-            moved = {k: v.pin_memory().to(device, non_blocking=True) for k, v in host.items()}
-            copied = torch.cuda.Event()
-            copied.record(side)
-        return moved, copied, rest
+        with span("prefetch.pin"):
+            host, *rest = prepare(item)
+            if side is None:
+                return {k: v.to(device) for k, v in host.items()}, None, rest
+            with torch.cuda.stream(side):
+                moved = {k: v.pin_memory().to(device, non_blocking=True)
+                         for k, v in host.items()}
+                copied = torch.cuda.Event()
+                copied.record(side)
+            return moved, copied, rest
 
     def finish(moved, copied):
         if copied is not None:

@@ -17,14 +17,26 @@ completion thread that waits for its probabilities (``engine.fetch``), so
 the next batch's staging and copy overlap this batch's forward; a semaphore
 bounds the batches dispatched and not yet fetched. ``close`` ends both
 threads once the requests queued before it are answered.
+
+The threads are named ``batcher-worker`` and ``batcher-completer``. While
+tracing is on (``utils/logging.py``) the worker records ``batcher.collect``
+(from the first request in hand to the dispatch decision),
+``batcher.inflight_wait`` (blocked on the semaphore: the card paces the
+batcher) and ``batcher.dispatch`` (the engine's call, whose spans take its
+batch id), and each request a ``batcher.queue`` wait from ``submit``
+queueing it to the collect that returns it in a batch (carry-overs
+included), all under the batch's number.
 """
 
 from __future__ import annotations
 
 import collections
+import itertools
 import queue
 import threading
 import time
+
+from videonavqa_tpu_torch.utils.logging import span, tracing, wait_span
 
 
 class Overloaded(RuntimeError):
@@ -49,13 +61,15 @@ class MicroBatcher:
         # end-to-end request latencies (submit -> response), the last 1024
         self._latencies = collections.deque(maxlen=1024)
         self._lock = threading.Lock()
+        self._request_ids = itertools.count()   # the spans' request id
         self._cq = None
         if pipeline_depth > 1:
             self._cq = queue.Queue()
             self._inflight = threading.Semaphore(pipeline_depth)
-            self._completer = threading.Thread(target=self._complete, daemon=True)
+            self._completer = threading.Thread(target=self._complete, daemon=True,
+                                               name="batcher-completer")
             self._completer.start()
-        self._worker = threading.Thread(target=self._loop, daemon=True)
+        self._worker = threading.Thread(target=self._loop, daemon=True, name="batcher-worker")
         self._worker.start()
 
     def submit(self, frames, v_len, tokens):
@@ -70,6 +84,8 @@ class MicroBatcher:
             t0 = time.monotonic()
             done = threading.Event()
             slot = {}
+            if tracing():
+                slot["_queued"] = (next(self._request_ids), time.time_ns())
             self.q.put(((frames, v_len, tokens), slot, done))
             done.wait()
             if "error" in slot:
@@ -93,9 +109,9 @@ class MicroBatcher:
         if self._cq is not None:
             self._completer.join(timeout)
 
-    def _collect(self):
-        """The next micro-batch of queued (item, slot, done) requests."""
-        B = self.engine.B
+    def _collect(self, bid):
+        """The next micro-batch of queued (item, slot, done) requests, batch
+        number ``bid`` in the spans."""
         batch = self._carry
         self._carry = []
         if not batch:
@@ -103,6 +119,19 @@ class MicroBatcher:
             if first is _STOP:
                 return None
             batch = [first]
+        with span("batcher.collect", batch=bid):
+            dispatch = self._fill(batch)
+        if tracing():
+            for _, slot, _ in dispatch:
+                if "_queued" in slot:
+                    request, queued = slot["_queued"]
+                    wait_span("batcher.queue", queued, request=request, batch=bid)
+        return dispatch
+
+    def _fill(self, batch):
+        """The micro-batch to dispatch from the requests in hand and those
+        queued behind them; the rest carry over."""
+        B = self.engine.B
         # an absolute deadline from the first request (per-get timeouts would
         # stretch the window to (B-1) x wait under a trickle of arrivals)
         deadline = time.monotonic() + self.wait_s
@@ -148,8 +177,8 @@ class MicroBatcher:
         return dispatch
 
     def _loop(self):
-        while True:
-            batch = self._collect()
+        for bid in itertools.count():
+            batch = self._collect(bid)
             if batch is None:
                 if self._cq is not None:
                     self._cq.put(_STOP)
@@ -158,15 +187,18 @@ class MicroBatcher:
             t0 = time.time()
             if self._cq is None:   # pipeline_depth 1: synchronous
                 try:
-                    probs = self.engine.run_batch(items)
+                    with span("batcher.dispatch", batch=bid):
+                        probs = self.engine.run_batch(items)
                 except Exception as e:
                     self._fail(batch, e)
                 else:
                     self._settle(batch, probs, t0)
                 continue
-            self._inflight.acquire()
+            with span("batcher.inflight_wait", batch=bid):
+                self._inflight.acquire()
             try:
-                handle = self.engine.dispatch_batch(items)
+                with span("batcher.dispatch", batch=bid):
+                    handle = self.engine.dispatch_batch(items)
             except Exception as e:
                 self._inflight.release()
                 self._fail(batch, e)

@@ -62,6 +62,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import os
 import threading
 from concurrent.futures import FIRST_EXCEPTION, ThreadPoolExecutor, wait
@@ -82,6 +83,7 @@ from videonavqa_tpu_torch.train.step import forward
 from videonavqa_tpu_torch.utils import checkpoint as ckpt
 from videonavqa_tpu_torch.utils import constants as C
 from videonavqa_tpu_torch.utils.device import resolve_device, tree_map, tree_to
+from videonavqa_tpu_torch.utils.logging import current_batch, span
 
 # the models on the C3D trunk, whose frame-bucketed batches read a zero-run
 C3D_MODELS = ("v_only_cnn3d", "concat3d")
@@ -93,6 +95,16 @@ _BITS = {torch.bfloat16: torch.int16, torch.float8_e4m3fn: torch.uint8}
 def _host_view(t):
     """A numpy view of a CPU tensor (of its bits for bf16 and fp8)."""
     return t.view(_BITS[t.dtype]).numpy() if t.dtype in _BITS else t.numpy()
+
+
+class _Handle(tuple):
+    """``dispatch_batch``'s handle ``(probs, n, ready)``; ``batch`` is the
+    micro-batch's id in the spans."""
+
+    def __new__(cls, probs, n, ready, batch):
+        handle = super().__new__(cls, (probs, n, ready))
+        handle.batch = batch
+        return handle
 
 
 def stem_calibration_batch(args, paths, rng):
@@ -216,6 +228,7 @@ class InferenceEngine:
         # handler threads share this RandomState (frame picks) under a lock
         self.rng = np.random.RandomState(seed)
         self._rng_lock = threading.Lock()
+        self._batch_ids = itertools.count()   # the spans' batch id of a direct caller
 
     # --- construction from the daemon's flags --------------------------------
 
@@ -551,11 +564,12 @@ class InferenceEngine:
         ``cfg.use_pallas_kernels`` (``cfg``: the engine's by default)."""
         video = normalize_video(batch["video"])
         stem = self.stem[video.device] if isinstance(self.stem, dict) else self.stem
-        if callable(stem):
-            return stem(video)
         cfg = cfg or self.cfg
-        return stem_features(*stem, video, dtype=DTYPES[cfg.compute_dtype],
-                             use_kernel=cfg.use_pallas_kernels)
+        with span("stem", device=True):
+            if callable(stem):
+                return stem(video)
+            return stem_features(*stem, video, dtype=DTYPES[cfg.compute_dtype],
+                                 use_kernel=cfg.use_pallas_kernels)
 
     def forward(self, batch, cfg=None, generator=None, weights=None):
         """(logits, new_state) of one padded batch under ``cfg`` (the engine's
@@ -622,9 +636,23 @@ class InferenceEngine:
         int8 calibration batch runs to its end here: its state commits under
         the weights lock, and only if no reload swapped the weights
         meanwhile (else the flag stays set and the next batch calibrates the
-        new weights)."""
+        new weights).
+
+        Its spans (``engine.make_batch``, ``engine.forward``, and ``fetch``'s
+        ``engine.fetch``) carry the batch id of the span open around the call
+        (the batcher's), else the engine's own count."""
         n = len(items)
-        batch = self.make_batch(items)
+        bid = current_batch()
+        if bid is None:
+            bid = next(self._batch_ids)
+        with span("engine.make_batch", batch=bid):
+            batch = self.make_batch(items)
+        with span("engine.forward", batch=bid):
+            probs, ready = self._enqueue(batch, n)
+        return _Handle(probs, n, ready, bid)
+
+    def _enqueue(self, batch, n):
+        """(probs, ready) of ``dispatch_batch``, from the weights snapshot on."""
         with self._weights_lock:
             weights = self._weights
             version = self._weights_version
@@ -638,16 +666,16 @@ class InferenceEngine:
                         self._weights = (weights[0], new_state) if self.mesh is None else \
                             tuple((w[0], st) for w, st in zip(weights, new_state))
                         self._needs_int8_calibration = False
-                return probs, n, None
+                return probs, None
             logits, _ = self.forward(batch, weights=weights)
             probs = torch.softmax(logits, dim=-1)[:n]
             if self.device.type != "cuda":
-                return probs.numpy(), n, None
+                return probs.numpy(), None
             out = torch.empty(probs.shape, dtype=probs.dtype, pin_memory=True)
             out.copy_(probs, non_blocking=True)
             ready = torch.cuda.Event()
             ready.record()
-        return out, n, ready
+        return out, ready
 
     @staticmethod
     def fetch(handle):
@@ -656,8 +684,9 @@ class InferenceEngine:
         probs, _, ready = handle
         if ready is None:
             return probs
-        ready.synchronize()
-        return probs.numpy()
+        with span("engine.fetch", batch=getattr(handle, "batch", None)):
+            ready.synchronize()
+            return probs.numpy()
 
     def run_batch(self, items):
         """[n, num_classes] f32 probabilities of ``items`` (padding rows dropped)."""

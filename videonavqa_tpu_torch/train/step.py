@@ -11,6 +11,12 @@ Under a mesh (``parallel/``) each rank's loss is its rows' part, the
 gradients are summed over 'data' in one flat buffer before the clip, and a
 'model'-sharded leaf's squares are summed over 'model' once in the global
 norm, so the clip and the step are one device's.
+
+While tracing is on (``utils/logging.py``) the stem records a device span
+``stem``, and a train step records ``step`` around all of it and, inside,
+``step.forward`` (the model's forward and the loss), ``step.backward`` and
+``step.update`` (the gradients gathered and summed over 'data', the clamp
+and clip, and Adam).
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from videonavqa_tpu_torch.models.base import DTYPES
 from videonavqa_tpu_torch.ops.video import normalize_video
 from videonavqa_tpu_torch.parallel import collectives
 from videonavqa_tpu_torch.train.loss import cross_entropy_loss
+from videonavqa_tpu_torch.utils.logging import span
 
 
 def tree_items(tree, prefix=""):
@@ -86,8 +93,9 @@ def _model_batch(spec, cfg, batch, stem_fn):
     cached features widened to the compute dtype."""
     feats = batch.get("v_features")
     if feats is None and stem_fn is not None and spec.uses_stem:
-        with torch.no_grad():
-            feats = stem_fn(normalize_video(batch["video"]))
+        video = normalize_video(batch["video"])
+        with torch.no_grad(), span("stem", device=True):
+            feats = stem_fn(video)
         return dict(batch, v_features=feats)
     if feats is not None and feats.dtype == torch.float8_e4m3fn:
         return dict(batch, v_features=feats.to(DTYPES[cfg.compute_dtype]))
@@ -127,23 +135,30 @@ def make_train_step(spec, cfg, optimizer, *, class_weights=None, reduction="mean
     sharded = [collectives.is_model_sharded(p) for p in leaves]
 
     def step(params, state, batch, generator=None):
+        with span("step"):
+            return _step(params, state, batch, generator)
+
+    def _step(params, state, batch, generator):
         if len(tree_leaves(params)) != len(leaves) or any(
                 a is not b for a, b in zip(tree_leaves(params), leaves)):
             raise ValueError("make_train_step: params are not the optimizer's tensors")
         model_batch = _model_batch(spec, cfg, batch, stem_fn)
         optimizer.zero_grad(set_to_none=True)
-        logits, new_state = spec.apply(params, state, model_batch, cfg, train=True,
-                                       generator=generator)
-        loss = cross_entropy_loss(logits, batch["label"], class_weights=class_weights,
-                                  reduction=reduction)
-        loss.backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in leaves]
-        grads = collectives.sum_grads_over_data(grads)
-        grads = clip_grads(grads, clip_value=clip_value, elementwise_clamp=elementwise_clamp,
-                           sharded=sharded)
-        for p, g in zip(leaves, grads):
-            p.grad = g
-        optimizer.step()
+        with span("step.forward"):
+            logits, new_state = spec.apply(params, state, model_batch, cfg, train=True,
+                                           generator=generator)
+            loss = cross_entropy_loss(logits, batch["label"], class_weights=class_weights,
+                                      reduction=reduction)
+        with span("step.backward"):
+            loss.backward()
+        with span("step.update"):
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in leaves]
+            grads = collectives.sum_grads_over_data(grads)
+            grads = clip_grads(grads, clip_value=clip_value, elementwise_clamp=elementwise_clamp,
+                               sharded=sharded)
+            for p, g in zip(leaves, grads):
+                p.grad = g
+            optimizer.step()
         preds = torch.argmax(logits.detach(), dim=-1)
         metrics = {"loss": loss.detach(), "hits": torch.sum(preds == batch["label"]),
                    "preds": preds, "grad_norm": global_norm(grads, sharded)}
