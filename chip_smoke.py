@@ -24,7 +24,11 @@ kernel's plain version):
              kernel also with its stored requantization source
              (``requant_stored``) at 4,550 and 145,600 rows, its yq
              bit-equal to quantize_act of the y it stored, both sources
-             timed; then the int8 row gate: both routes of a trunk block's
+             timed; the int8 3x3 conv kernel (conv3x3_int8) bit for bit
+             against its plain twin (the im2col route) in both epilogue forms
+             at batch 32 x 35 frames (a FiLM block's conv, conv_init), batch
+             1, three frames and widths of 16 and 48, timed against that
+             route; then the int8 row gate: both routes of a trunk block's
              1x1 conv (the fused kernel, requantizing from the source the
              trunk picks at that count; conv2d_int8_prequant, ReLU and the
              3x3 conv's quantize) timed at the served folded row counts and
@@ -303,6 +307,7 @@ from videonavqa_tpu_torch.datagen.ontology import ANSWER_VOCAB
 from videonavqa_tpu_torch.datagen import trajectory as trajectory_mod
 from videonavqa_tpu_torch.kernels import _build
 from videonavqa_tpu_torch.kernels import attn_tail as attn_mod
+from videonavqa_tpu_torch.kernels import conv3x3_int8 as conv3x3_mod
 from videonavqa_tpu_torch.kernels import film_reencode as reenc_mod
 from videonavqa_tpu_torch.kernels import int8_matmul as int8_mod
 from videonavqa_tpu_torch.kernels import lstm as lstm_mod
@@ -374,9 +379,11 @@ REPO_SOURCE = {
              "videonavqa_tpu/kernels/lstm_pallas.py:54"),
     "vgg_block1": ("videonavqa_tpu_torch/csrc/vgg_block1.cu",
                    "videonavqa_tpu/kernels/vgg_block1_pallas.py:109"),
+    "conv3x3_int8": ("videonavqa_tpu_torch/csrc/conv3x3_int8.cu",
+                     "none: XLA fused this conv's epilogue on the TPU"),
 }
 COUNTERS = {"film_reencode": reenc_mod, "attn_tail": attn_mod, "int8_matmul_fused": int8_mod,
-            "lstm": lstm_mod, "vgg_block1": block1_mod}
+            "lstm": lstm_mod, "vgg_block1": block1_mod, "conv3x3_int8": conv3x3_mod}
 
 
 def log(msg):
@@ -426,7 +433,8 @@ KERNEL_NAMES = {"film_reencode": ("film_reencode_kernel", "film_reencode_wide_ke
                               "attn_tail_gates_kernel", "attn_tail_wide_kernel"),
                 "int8_matmul_fused": ("int8_matmul_kernel", "int8_quantize_kernel"),
                 "lstm": ("lstm_h128_cluster_kernel", "lstm_wide_kernel"),
-                "vgg_block1": ("vgg_block1_bf16_kernel", "vgg_block1_f32_kernel")}
+                "vgg_block1": ("vgg_block1_bf16_kernel", "vgg_block1_f32_kernel"),
+                "conv3x3_int8": ("conv3x3_int8_kernel",)}
 
 
 def device_breakdown(fn, top=8, tally=None):
@@ -861,6 +869,78 @@ def check_int8_matmul(dev):
                     f" torch._int_mm alone {r['library_ms']:.4f} ms, bound {b_ms:.5f} ms by {b_by}")
             rows.setdefault("errs", []).append(err)
     rows["stored"] = check_int8_requant_stored(dev, wq2, w_scale, bias, gen)
+    return rows
+
+
+# (frames, C, O, FiLM form) of the conv3x3_int8 check: a FiLM block's conv
+# and conv_init at batch 32 x 35 frames (timed), batch 1, three frames (no
+# whole row tile past the first three), and widths under the kernel's tiles.
+CONV3X3_RUNS = ((1120, 1024, 1024, True), (1120, 512, 1024, False), (35, 1024, 1024, True),
+                (3, 1024, 1024, False), (3, 48, 48, True), (1, 16, 16, False))
+
+
+def check_conv3x3_int8(dev):
+    """conv3x3_int8 against its plain twin (the im2col route: conv_i8's
+    im2col and torch._int_mm, _dequant, then the eager ReLU or FiLM tail) at
+    CONV3X3_RUNS, bit for bit, biases and FiLM values drawn non-zero. Times
+    the kernel (device ms a launch by the profiler; the wrapper by CUDA
+    events), the plain twin, and as ``library_ms`` the same im2col route,
+    which the port ran before the kernel, at the served shapes, with
+    ``torch._int_mm`` alone beside it. -> {"main": row, "init": row, "errs": [...]}"""
+    gen = torch.Generator().manual_seed(23)
+    rows = {"errs": []}
+    H, W = 10, 13
+    for N, C, O, film in CONV3X3_RUNS:
+        wq, w_scale = quantize_weight_channelwise(
+            0.05 * torch.randn((O, C, 3, 3), generator=gen))
+        wq, w_scale = wq.to(dev), w_scale.to(dev)
+        bias = (0.1 * torch.randn(O, generator=gen)).to(dev)
+        x = torch.relu(torch.randn((N, H, W, C), generator=gen)).to(dev).to(torch.bfloat16)
+        absmax = 1.25 * x.float().abs().amax()
+        xq = quantize_act(x, act_scale(absmax))
+        del x
+        fm = None
+        if film:
+            fm = ((1.5 * torch.randn((N, O), generator=gen)).to(dev).to(torch.bfloat16),
+                  (0.5 * torch.randn((N, O), generator=gen)).to(dev).to(torch.bfloat16),
+                  torch.relu(torch.randn((N, H, W, O), generator=gen)).to(dev).to(torch.bfloat16))
+        args = (wq, w_scale, bias, xq, absmax)
+        kw = dict(relu=not film, film=fm)
+        before = conv3x3_mod.launches
+        y = conv3x3_mod.conv3x3_int8(*args, **kw)
+        y_p = conv3x3_mod.conv3x3_int8_plain(*args, **kw)
+        torch.cuda.synchronize()
+        differ = int((y != y_p).sum())
+        err = (y.float() - y_p.float()).abs().max().item()
+        tag = f"N={N} ({N * H * W} rows) C={C} O={O} {'FiLM' if film else 'ReLU'}"
+        log(f"  conv3x3_int8 {tag}: elements differing from the plain twin {differ},"
+            f" max_abs_err {err:.3e}, launches {conv3x3_mod.launches - before}")
+        if differ or conv3x3_mod.launches != before + 1:
+            raise AssertionError(f"conv3x3_int8 {tag}: not bit-equal to the im2col route")
+        rows["errs"].append(err)
+        del y, y_p
+        if N == 1120:
+            M = N * H * W
+            ops = 2 * M * 9 * C * O
+            nbytes = M * C + 9 * C * O + 8 * O + 2 * M * O + (2 * M * O + 4 * N * O if film else 0)
+            b_ms, b_by = bound_ms(nbytes, ops, INT8_OPS)
+            row = dict(bound_ms=b_ms, bound_by=b_by,
+                       **timings(lambda: conv3x3_mod.conv3x3_int8(*args, **kw),
+                                 lambda: conv3x3_mod.conv3x3_int8_plain(*args, **kw),
+                                 "conv3x3_int8_kernel", 20, 3))
+            row["library_ms"] = time_ms(lambda: conv3x3_mod.conv3x3_int8_plain(*args, **kw), 3, 1)
+            cols = torch.randint(-127, 128, (M, 9 * C), dtype=torch.int8, device=dev)
+            wt = wq.permute(0, 2, 3, 1).reshape(O, 9 * C).t()
+            row["int_mm_ms"] = time_ms(lambda: torch._int_mm(cols, wt), 5, 1)
+            del cols
+            log(f"  conv3x3_int8 {tag}: {row['ms']:.4f} ms a launch (wrapper"
+                f" {row['wrapper_ms']:.4f}; {ops / row['ms'] / 1e9:.1f} TOP/s,"
+                f" {100 * b_ms / row['ms']:.1f}% of the bound {b_ms:.4f} ms by {b_by}),"
+                f" plain twin {row['plain_ms']:.4f} ms, the im2col route {row['library_ms']:.4f}"
+                f" ms (torch._int_mm alone {row['int_mm_ms']:.4f} ms)")
+            rows["main" if film else "init"] = row
+        del xq, fm, args
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1313,12 +1393,31 @@ def fused_1x1_launches(blocks, *rows):
     return blocks * sum(r <= INT8_FUSED_MAX_ROWS for r in rows)
 
 
+def conv3x3_takes(cin, cout):
+    """Whether the trunk sends a bf16 3x3 conv of these widths on the card to
+    the conv3x3_int8 kernel."""
+    wq = torch.empty((cout, cin, 3, 3), dtype=torch.int8, device="meta")
+    return conv3x3_mod.takes(torch.device("cuda"), wq, torch.bfloat16)
+
+
+def trunk_launches(cfg, *rows):
+    """Launches of the calibrated int8 trunk's two kernels over forwards of
+    ``cfg`` at these folded row counts, where the count is at or under the
+    fused 1x1's gate: the fused 1x1 once a block; the 3x3 conv kernel once
+    for conv_init and once a block, where it takes their widths."""
+    C, blocks = cfg.num_res_block_channels, cfg.num_res_blocks
+    per_forward = conv3x3_takes(cfg.num_input_channels, C) + blocks * conv3x3_takes(C, C)
+    forwards = sum(r <= INT8_FUSED_MAX_ROWS for r in rows)
+    return {"int8_matmul_fused": fused_1x1_launches(blocks, *rows),
+            "conv3x3_int8": per_forward * forwards}
+
+
 def serve_film_attn_features(dev, feats, tally):
     """The eval.sh preset over cached features (serve_stem_model)."""
     launches, ms, worst = serve_stem_model(dev, FILM_ATTN_CFG, feats, 32, 5, tally)
     expect_launches(FILM_ATTN_CFG.model, launches, dict(
-        FILM_ATTN_KERNELS, int8_matmul_fused=fused_1x1_launches(5, 32 * 20 * 130,
-                                                                 32 * 35 * 130, 35 * 130)))
+        FILM_ATTN_KERNELS, **trunk_launches(FILM_ATTN_CFG, 32 * 20 * 130, 32 * 35 * 130,
+                                            35 * 130)))
     return launches, ms, worst
 
 
@@ -1362,7 +1461,7 @@ def serve_film_attn_video(dev, video, tally, stem=None, label="from video"):
     # the int8 stem quantizes block 1 with the rest: vgg_block1 launches 0 times there
     expect_launches(cfg.model, launches, dict(
         FILM_ATTN_KERNELS, vgg_block1=0 if stem else 2,
-        int8_matmul_fused=fused_1x1_launches(5, 32 * 35 * 130, 35 * 130)))
+        **trunk_launches(cfg, 32 * 35 * 130, 35 * 130)))
     for probs, (_, its) in zip(outs, runs):
         check_probs(probs, len(its))
     worst = max(compare_paths(eng, its) for eng, its in runs)
@@ -1392,8 +1491,7 @@ def serve_time_multi_hop(dev, feats, tally):
     cfg = TIME_MULTI_HOP_CFG
     launches, ms, worst = serve_stem_model(dev, cfg, feats, 16, 7, tally)
     expect_launches(cfg.model, launches, {
-        "lstm": 3,
-        "int8_matmul_fused": fused_1x1_launches(3, 16 * 20 * 130, 16 * 35 * 130, 35 * 130)})
+        "lstm": 3, **trunk_launches(cfg, 16 * 20 * 130, 16 * 35 * 130, 35 * 130)})
     return launches, ms, worst
 
 
@@ -1470,8 +1568,7 @@ def serve_film_gp(dev, feats, tally):
     cfg = FILM_GP_CFG
     launches, ms, worst = serve_stem_model(dev, cfg, feats, 32, 31, tally)
     expect_launches(cfg.model, launches, {
-        "film_reencode": 3,
-        "int8_matmul_fused": fused_1x1_launches(4, 32 * 20 * 130, 32 * 35 * 130, 35 * 130)})
+        "film_reencode": 3, **trunk_launches(cfg, 32 * 20 * 130, 32 * 35 * 130, 35 * 130)})
     return launches, ms, worst
 
 
@@ -1490,7 +1587,7 @@ def serve_film_attn_bow(dev, feats, tally):
                                            batch1_reference=port_on_cpu)
     expect_launches("film_attn_pt (bow)", launches, {
         "attn_tail": 3,
-        "int8_matmul_fused": fused_1x1_launches(5, 32 * 20 * 130, 32 * 35 * 130, 35 * 130)})
+        **trunk_launches(FILM_ATTN_BOW_CFG, 32 * 20 * 130, 32 * 35 * 130, 35 * 130)})
     return launches, ms, worst
 
 
@@ -2571,8 +2668,7 @@ def interchange(dev, card, tmp=None, data=None):
     launches, ms, worst = serve_stem_model(dev, cfg, feats, 32, 41, tally, label=label,
                                            checkpoint_path=pt)
     expect_launches(label, launches, dict(
-        FILM_ATTN_KERNELS, int8_matmul_fused=fused_1x1_launches(5, 32 * 20 * 130,
-                                                                 32 * 35 * 130, 35 * 130)))
+        FILM_ATTN_KERNELS, **trunk_launches(cfg, 32 * 20 * 130, 32 * 35 * 130, 35 * 130)))
     log(f"  {label}: kernel path (plain path) ms/video "
         + ", ".join(f"{k} {a:.4f} ({b:.4f})" for k, (a, b) in ms.items())
         + f"; worst |dprob| {worst:.3e}")
@@ -2747,8 +2843,10 @@ def check_served(label, engine, rec, jobs, results, vocab):
 
 def film_launches(forwards, plain):
     """film_attn_pt's launches over ``forwards`` micro-batches, ``plain`` of
-    them not calibrating."""
-    return {"film_reencode": forwards, "attn_tail": forwards, "int8_matmul_fused": 5 * plain}
+    them not calibrating (the 3x3 conv kernel once for conv_init and once a
+    block)."""
+    return {"film_reencode": forwards, "attn_tail": forwards, "int8_matmul_fused": 5 * plain,
+            "conv3x3_int8": 6 * plain}
 
 
 def serve_load(label, args, tmp, jobs, n, clients, vocab, reload_at=None, want=film_launches,
@@ -3629,7 +3727,8 @@ def mesh_served_model_parallel(dev, card):
     if err > PROB_ATOL or bad:
         raise AssertionError("(b): the model-parallel engine does not serve as one device")
     expect_launches("(b) served batch, model 2", launches,
-                    {"film_reencode": 2, "attn_tail": 2, "int8_matmul_fused": 10})
+                    {"film_reencode": 2, "attn_tail": 2, "int8_matmul_fused": 10,
+                     "conv3x3_int8": 12})
     return launches
 
 
@@ -3677,7 +3776,8 @@ def mesh_daemon(card, data, ckpt, vocab):
     wall = time.perf_counter() - t0
     expect_launches("(c) the daemon on a one-device mesh", total,
                     {"film_reencode": MESH_REQUESTS, "attn_tail": MESH_REQUESTS,
-                     "int8_matmul_fused": 5 * (MESH_REQUESTS - 1)})
+                     "int8_matmul_fused": 5 * (MESH_REQUESTS - 1),
+                     "conv3x3_int8": 6 * (MESH_REQUESTS - 1)})
     log(f"  (c) the daemon --mesh_devices 1 on {card}: {MESH_REQUESTS} requests one at a time in"
         f" {wall:.2f} s, each against run_batch of the engine without a mesh: max |dprob| of"
         f" the top 5 {worst:.3e} (bound {PROB_ATOL}); launches {total}")
@@ -4075,8 +4175,8 @@ def width_launches(cfg):
                 + lstm_launches(3 * cfg.mac_dim, 32, 1)}
     C = cfg.num_res_block_channels
     per_block = 1 if int8_mod.panel_route(C, C) else 2
-    want = {"int8_matmul_fused": per_block * fused_1x1_launches(
-        cfg.num_res_blocks, 32 * 35 * 130, 35 * 130)}
+    want = trunk_launches(cfg, 32 * 35 * 130, 35 * 130)
+    want["int8_matmul_fused"] *= per_block
     H = cfg.hidden_size
     want["film_reencode"] = 2 if H <= 128 else 35 * lstm_launches(H, 32, 1)
     if cfg.model == "film_attn_pt":
@@ -4190,6 +4290,7 @@ def main():
     attn = check_attn_tail(dev)
     check_bits_unchanged(dev)
     int8 = check_int8_matmul(dev)
+    conv3x3 = check_conv3x3_int8(dev)
     gate = sweep_int8_gate(dev)
     lstm = check_lstm(dev)
     block1 = check_vgg_block1(dev)
@@ -4280,6 +4381,7 @@ def main():
         entry("lstm", lstm[LSTM_MAIN], max(r["max_abs_err"] for r in lstm.values())),
         entry("vgg_block1", block1[BLOCK1_RUNS[0]],
               max(r["max_abs_err"] for r in block1.values())),
+        entry("conv3x3_int8", conv3x3["main"], max(conv3x3["errs"])),
     ]
     for k in kernels:
         if k["launches"] < 1:

@@ -110,7 +110,7 @@ def test_tracing_off_records_nothing_reads_no_clock_and_makes_no_event(monkeypat
     step(params, {}, batch)
     list(device_prefetch(range(2), lambda k: ({"x": torch.ones(2)}, k), "cpu"))
     monkeypatch.undo()
-    assert tlog.trace_drain() == {"spans": [], "counters": {}}
+    assert tlog.trace_drain() == {"spans": [], "counters": {"conv3x3_int8.launches": 0}}
 
 
 def test_nesting_parents_threads_and_drain(traced):

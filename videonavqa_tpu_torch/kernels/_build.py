@@ -22,7 +22,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("film_reencode", "attn_tail", "int8_matmul", "lstm", "vgg_block1")
+SOURCES = ("film_reencode", "attn_tail", "int8_matmul", "lstm", "vgg_block1", "conv3x3_int8")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

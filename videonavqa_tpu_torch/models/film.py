@@ -18,7 +18,9 @@ forms, as the state allows: calibrated (absmax and int8 weights from the
 state; the 1x1 convs take the fused int8 kernel when the folded row count is
 at or under ``INT8_FUSED_MAX_ROWS``, which requantizes the 3x3 conv's input
 from the source the JAX package's route at that count uses,
-``INT8_REQUANT_F32_MAX_ROWS``), static (an absmax but no int8 weights
+``INT8_REQUANT_F32_MAX_ROWS``, and there, on the card, the 3x3 convs take
+the conv3x3_int8 kernel, its epilogue carrying conv_init's ReLU or the FiLM
+block's tail), static (an absmax but no int8 weights
 in the state: the weights quantize each call) and dynamic (no absmax: each
 conv quantizes its input by this batch's absmax, as the harness's eval step
 runs ``--int8_trunk``).
@@ -36,6 +38,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from videonavqa_tpu_torch.kernels.attn_tail import attn_tail, attn_tail_plain
+from videonavqa_tpu_torch.kernels.conv3x3_int8 import conv3x3_int8, film_tail
+from videonavqa_tpu_torch.kernels.conv3x3_int8 import takes as conv3x3_takes
 from videonavqa_tpu_torch.kernels.film_reencode import (
     check_shape as check_reencode_shape, film_reencode, film_reencode_plain)
 from videonavqa_tpu_torch.kernels.int8_matmul import matmul_int8_fused
@@ -47,8 +51,8 @@ from videonavqa_tpu_torch.ops.masking import attn_frame_mask, length_mask, mask_
 from videonavqa_tpu_torch.ops.norm import frame_batch_norm
 from videonavqa_tpu_torch.parallel.collectives import batch_rows, max_over_batch
 from videonavqa_tpu_torch.ops.quant import (
-    conv2d_int8_dynamic, conv2d_int8_preq_act, conv2d_int8_prequant, conv2d_int8_static,
-    quantize_weight_channelwise)
+    act_scale, conv2d_int8_dynamic, conv2d_int8_preq_act, conv2d_int8_prequant,
+    conv2d_int8_static, quantize_act, quantize_weight_channelwise)
 from videonavqa_tpu_torch.utils import constants as C
 from videonavqa_tpu_torch.utils.device import tree_to
 
@@ -82,13 +86,32 @@ def init_film_trunk(gen, cfg):
     return params, {"bn_init": bn_state}
 
 
-def _trunk_convs(params, state, cfg, rows, new_state, train=False):
-    """(conv, block_convs) of the trunk's mode; block_convs is None unless the
-    fused int8 1x1 kernel runs (at any trunk width). Training takes the
-    plain convs: no calibration and no int8."""
+def _relu_after(conv):
+    """conv(p, x, name) -> conv(p, x, name, relu=False), the ReLU a pass of its own."""
+    def run(p, x, name, relu=False):
+        y = conv(p, x, name)
+        return torch.relu(y) if relu else y
+    return run
+
+
+def _film(y, alphas, betas, res):
+    """A FiLM block's tail at the conv output's dtype."""
+    return film_tail(y, alphas.to(y.dtype), betas.to(y.dtype), res)
+
+
+def _trunk_convs(params, state, cfg, rows, new_state, train=False, device="cpu"):
+    """(conv, block) of the trunk's mode over tensors on ``device``:
+    ``conv(p, x, name, relu=False)`` runs one conv (then its ReLU where
+    asked); ``block(k, x, p1x1, p3x3, alphas, betas)`` runs a whole residual
+    block, and is None unless the fused int8 1x1 kernel runs (at any trunk
+    width). There the 3x3 convs also take the conv3x3_int8 kernel where it
+    takes them (``conv3x3_int8.takes``: CUDA, C and O multiples of 16, bf16),
+    conv_init with its ReLU and each block's conv with the FiLM tail;
+    otherwise the im2col route. Training takes the plain convs: no
+    calibration and no int8."""
     dtype = DTYPES[cfg.compute_dtype]
     if train:
-        return (lambda p, x, name: conv2d(p, x, dtype=dtype)), None
+        return _relu_after(lambda p, x, name: conv2d(p, x, dtype=dtype)), None
     if cfg.int8_trunk_calibrate:
         captured, captured_wq = {}, {}
         new_state["int8_scales"] = captured
@@ -100,37 +123,50 @@ def _trunk_convs(params, state, cfg, rows, new_state, train=False):
             captured_wq[name] = {"wq": wq, "scale": sw}
             return conv2d(p, x, dtype=torch.float32)
 
-        return conv, None
+        return _relu_after(conv), None
     if not cfg.use_int8_trunk:
-        return (lambda p, x, name: conv2d(p, x, dtype=dtype)), None
+        return _relu_after(lambda p, x, name: conv2d(p, x, dtype=dtype)), None
 
     scales, wqs = state.get("int8_scales"), state.get("int8_wq")
     if scales is None:   # dynamic: this batch's absmax, weights quantized each call
-        return (lambda p, x, name: conv2d_int8_dynamic(p, x, out_dtype=dtype)), None
+        return _relu_after(lambda p, x, name: conv2d_int8_dynamic(p, x, out_dtype=dtype)), None
     if wqs is None:      # static: calibrated absmax, weights quantized each call
-        return (lambda p, x, name: conv2d_int8_static(p, x, scales[name], out_dtype=dtype)), \
-            None
+        return _relu_after(lambda p, x, name: conv2d_int8_static(p, x, scales[name],
+                                                                 out_dtype=dtype)), None
 
-    def conv(p, x, name):
+    def prequant(p, x, name):
         return conv2d_int8_prequant(wqs[name]["wq"], wqs[name]["scale"], p.get("bias"),
                                     x, scales[name], out_dtype=dtype)
 
+    plain = _relu_after(prequant)
     if not (cfg.use_pallas_kernels and rows <= INT8_FUSED_MAX_ROWS):
-        return conv, None
+        return plain, None
     # the JAX package's route at the global batch's count
     requant_stored = batch_rows(rows)[0] > INT8_REQUANT_F32_MAX_ROWS
+    kernel_3x3 = {name: conv3x3_takes(device, w["wq"], dtype) for name, w in wqs.items()}
 
-    def block_convs(k, x, p1x1, p3x3):
+    def conv(p, x, name, relu=False):
+        if not kernel_3x3.get(name):
+            return plain(p, x, name, relu)
+        xq = quantize_act(x, act_scale(scales[name]))
+        return conv3x3_int8(wqs[name]["wq"], wqs[name]["scale"], p.get("bias"), xq,
+                            scales[name], relu=relu, out_dtype=dtype)
+
+    def block(k, x, p1x1, p3x3, alphas, betas):
         n1, n3 = f"conv1x1_{k}", f"conv3x3_{k}"
         res, resq = matmul_int8_fused(
             x, wqs[n1]["wq"][:, :, 0, 0], wqs[n1]["scale"], p1x1.get("bias"),
             scales[n1], relu=True, next_absmax=scales[n3], out_dtype=dtype,
             requant_stored=requant_stored)
+        if kernel_3x3[n3]:
+            film = (alphas.to(dtype).contiguous(), betas.to(dtype).contiguous(), res)
+            return conv3x3_int8(wqs[n3]["wq"], wqs[n3]["scale"], p3x3.get("bias"), resq,
+                                scales[n3], film=film, out_dtype=dtype)
         y = conv2d_int8_preq_act(wqs[n3]["wq"], wqs[n3]["scale"], p3x3.get("bias"),
                                  resq, scales[n3], out_dtype=dtype)
-        return res, y
+        return _film(y, alphas, betas, res)
 
-    return conv, block_convs
+    return conv, block
 
 
 def film_trunk(params, state, feats, film_values, frame_mask, cfg, *, train=False):
@@ -143,26 +179,20 @@ def film_trunk(params, state, feats, film_values, frame_mask, cfg, *, train=Fals
     B, T = feats.shape[:2]
     ch = cfg.num_res_block_channels
     new_state = dict(state)
-    conv, block_convs = _trunk_convs(params, state, cfg,
-                                     B * T * feats.shape[2] * feats.shape[3], new_state, train)
-    if block_convs is None:
-        def block_convs(k, x, p1x1, p3x3):
-            res = torch.relu(conv(p1x1, x, f"conv1x1_{k}"))
-            return res, conv(p3x3, res, f"conv3x3_{k}")
-
-    def block(k, x, p1x1, p3x3, alphas, betas):
-        res, y = block_convs(k, x, p1x1, p3x3)
-        a = alphas.to(y.dtype)[:, None, None, :]
-        b = betas.to(y.dtype)[:, None, None, :]
-        return torch.relu(a * y + b) + res
+    conv, block = _trunk_convs(params, state, cfg, B * T * feats.shape[2] * feats.shape[3],
+                               new_state, train, feats.device)
+    if block is None:
+        def block(k, x, p1x1, p3x3, alphas, betas):
+            res = conv(p1x1, x, f"conv1x1_{k}", relu=True)
+            return _film(conv(p3x3, res, f"conv3x3_{k}"), alphas, betas, res)
 
     if cfg.remat_film_blocks and train:
         run_block = lambda *args: checkpoint(block, *args, use_reentrant=False)
     else:
         run_block = block
 
-    x = torch.relu(conv(params["conv_init"], feats.reshape(B * T, *feats.shape[2:]),
-                        "conv_init"))
+    x = conv(params["conv_init"], feats.reshape(B * T, *feats.shape[2:]), "conv_init",
+             relu=True)
     x, new_state["bn_init"] = frame_batch_norm(
         params["bn_init"], state["bn_init"], x.reshape(B, T, *x.shape[1:]), frame_mask,
         train=train)

@@ -5,7 +5,13 @@ tensor with a calibrated absmax. The int8 product is exact: ``torch._int_mm``
 (int8 x int8 -> int32) over the channel axis, with a 3x3 conv written as an
 im2col of nine shifted views of a zero-padded tensor (``F.unfold`` refuses
 int8 on the CPU). The JAX package leaves this conv to XLA outside any Pallas
-kernel, so the port leaves it to PyTorch.
+kernel, and XLA fuses its dequantization into it; eager PyTorch does not.
+So the calibrated trunk's 3x3 convs, where the fused int8 1x1 kernel runs,
+take the hand-written ``kernels/conv3x3_int8.py`` on the card (an implicit
+GEMM with the epilogue fused), whose plain twin is this im2col route. Every other int8 conv runs here in plain PyTorch: the dynamic and
+static trunk modes, the int8 stem (``stem/quant.py``), the calibrated trunk
+on the CPU or at widths the kernel does not take, and training (which runs
+no int8).
 
 Rounding is half to even (``torch.round``), the division by the activation
 scale a true division, as in the JAX package.

@@ -22,10 +22,12 @@ are resolved to ``device_ms`` when the record is drained, after the caller
 has synchronised. ``wait_span`` records a wait that one thread started
 (``start_ns``, its ``time.time_ns()``) and another ends, marked ``wait``.
 ``trace_drain()`` returns ``{"spans": [...], "counters": {...}}`` and
-clears the record; the counters are the growth of the pinned host pool
-(``pinned.allocs``: cudaHostAlloc calls; ``pinned.alloc_ms``: their time)
-since ``trace_on()`` or the last drain, from ``torch.cuda.host_memory_stats``
-where the build reports them.
+clears the record; the counters are growths since ``trace_on()`` or the last
+drain: ``conv3x3_int8.launches``, the launches of the int8 trunk's 3x3 conv
+kernel (6 a film_attn_pt forward at 5 blocks; 0 on the CPU), and, from
+``torch.cuda.host_memory_stats`` where the build reports them, the pinned
+host pool's (``pinned.allocs``: cudaHostAlloc calls; ``pinned.alloc_ms``:
+their time).
 """
 
 from __future__ import annotations
@@ -39,6 +41,8 @@ import time
 
 import numpy as np
 import torch
+
+from videonavqa_tpu_torch.kernels import conv3x3_int8
 
 
 class MetricsLogger:
@@ -101,6 +105,7 @@ _buffers = []                   # every recording thread's _Buffer
 _buffers_lock = threading.Lock()
 _ids = itertools.count(1)
 _pinned_base = None
+_conv3x3_base = 0
 
 
 class _Buffer:
@@ -199,11 +204,12 @@ def _pinned():
 
 def trace_on():
     """Start a new record (what an earlier one left undrained is dropped)."""
-    global _on, _pinned_base
+    global _on, _pinned_base, _conv3x3_base
     with _buffers_lock:
         for buf in _buffers:
             buf.spans = []
     _pinned_base = _pinned()
+    _conv3x3_base = conv3x3_int8.launches
     _on = True
 
 
@@ -215,7 +221,7 @@ def trace_off():
 def trace_drain():
     """The record so far -> ``{"spans": [dict, ...] by start, "counters":
     {name: value}}``, and a new record begins."""
-    global _pinned_base
+    global _pinned_base, _conv3x3_base
     with _buffers_lock:
         buffers = list(_buffers)
         _buffers[:] = [b for b in _buffers if b.owner.is_alive()]
@@ -236,10 +242,12 @@ def trace_drain():
                 rec["wait"] = True
             spans.append(rec)
     spans.sort(key=lambda r: r["start_ns"])
-    counters = {}
+    launched = conv3x3_int8.launches
+    counters = {"conv3x3_int8.launches": launched - _conv3x3_base}
+    _conv3x3_base = launched
     now = _pinned()
     if now is not None:
         base = _pinned_base or (0, 0.0)
-        counters = {"pinned.allocs": now[0] - base[0], "pinned.alloc_ms": now[1] - base[1]}
+        counters.update({"pinned.allocs": now[0] - base[0], "pinned.alloc_ms": now[1] - base[1]})
     _pinned_base = now
     return {"spans": spans, "counters": counters}
